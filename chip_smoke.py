@@ -1,23 +1,37 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port once on an NVIDIA GPU: build the CUDA kernels from
-this checkout, hold them against their plain PyTorch versions, train the
-full-width ``fruit_nerf`` grid preset for a few hundred steps on a synthetic
-scene, and render a held-out camera.
+this checkout, hold each against its plain PyTorch version, train the
+full-width ``fruit_nerf`` grid preset (cell mode, by hand) and its corner-mode
+grid (through ``train_loop``, with evals and checkpoints) for a few hundred
+steps each on a synthetic scene, and resume and render.
 
     python3 chip_smoke.py [--steps 400] [--seed 0]
 
 Phases, each printing its lines:
   card     nvidia-smi's name and power limit; TF32 switched off for matmuls
            and cuDNN
-  build    nvcc of fruitnerf_tpu_torch/csrc into fruitnerf_tpu_torch/_build
-  kernels  cell_encode forward and backward against cell_encode_torch at the
-           slice's layout and P = 4096*48 + 4096 points: max errors and
-           median times
+  build    nvcc of fruitnerf_tpu_torch/csrc into fruitnerf_tpu_torch/_build;
+           registers of each kernel
+  kernels  at P = 4096*48 + 4096 points, each kernel pair against its plain
+           version: max errors and median times. K1/K2 (cell_encode.cu) at
+           the cell slice's layout; K3/K4 (corner_encode.cu) at the corner
+           slice's (16 levels, T = 8192, F = 2) and at a small F = 4 layout;
+           K5/K6 (cell v1, the cell kernels at a uniform 16-level T = 8192
+           layout) through grid_encode_flat(mode="cell") and its autograd,
+           after one counted forward and backward through that entry (cell
+           v1's only path: no training path reaches it)
   parity   one small train step's losses and colour-MLP gradient on the GPU
            (kernels) against the CPU (plain version), same parameters and draws
-  slice    the training steps: finite losses, PSNR rising, every step
-           through both kernels; steps/s and rays/s; then a held-out render
-Then one JSON line of the kernels, the card line, and as the last line
+  slice    the cell-mode training steps: finite losses, PSNR rising, every
+           step through K1 and K2; steps/s and rays/s; a held-out render
+  corner   train_loop on the corner-mode grid, logging every step and
+           evaluating and checkpointing every 100: finite losses, PSNR
+           rising, every step through K3 and K4, finite eval stats with SSIM
+           in [-1, 1]; steps/s and rays/s (the per-step log syncs the host
+           each step; the cell slice does not). Then the manifest, whose grid entry
+           must rebuild the layout, and a resume into a fresh state that must
+           equal the trained one and render the held-out camera identically
+Then one JSON line of the six kernels, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with
 no CUDA device it exits non-zero before printing any result.
 """
@@ -29,12 +43,15 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
-FWD_ATOL = 1e-5  # K1: float32 sums of 8 products of O(1) values
-BWD_RTOL = 1e-4  # K2: relative to each gradient's max; atomics reorder sums
+FWD_ATOL = 1e-5  # forward kernels: float32 sums of 8 products of O(1) values
+BWD_RTOL = 1e-4  # backward kernels: relative to each gradient's max; atomics reorder sums
 LOSS_RTOL = 1e-4  # small-input step, GPU against CPU, float32
 GRAD_RTOL = 1e-3  # its gradients, relative to each one's max magnitude
 P_SLICE = 4096 * 48 + 4096  # fine samples plus sparsity points of one step
@@ -73,18 +90,30 @@ def median_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def kernel_phase(hg, layout, dev, seed: int) -> list[dict]:
-    g = torch.Generator(device=dev).manual_seed(seed)
-    table = torch.rand((layout.total_rows, 16), generator=g, device=dev) * 2.0 - 1.0
-    pos = torch.rand((P_SLICE, 3), generator=g, device=dev) * 0.98 + 0.01
-    grad = torch.randn((P_SLICE, 2 * layout.num_levels), generator=g, device=dev)
+TPU = "fruitnerf_tpu/ops/pallas/hash_grid.py"
+CELL_SRC = "fruitnerf_tpu_torch/csrc/cell_encode.cu"
+CORNER_SRC = "fruitnerf_tpu_torch/csrc/corner_encode.cu"
 
-    out_k = hg.cell_encode_fwd_cuda(table, pos, layout)
-    out_p = hg.cell_encode_torch(table, pos, layout)
-    dt_k, dp_k = hg.cell_encode_bwd_cuda(table, pos, grad, layout, True)
+
+def hold_pair(label, fwd, bwd, plain, table, pos, grad) -> dict:
+    """A forward kernel ``fwd(table, pos)`` and its backward ``bwd(table,
+    pos, grad) -> (dTable, dPos)`` against the plain version's forward and
+    autograd backward, on the same inputs: errors (checked) and median
+    times of each. With ``bwd=None`` the backward is taken through
+    autograd of ``fwd``, as a training step takes it."""
+    if bwd is None:
+        t_k = table.clone().requires_grad_(True)
+        p_k = pos.clone().requires_grad_(True)
+        out_graph = fwd(t_k, p_k)
+
+        def bwd(t, p, gr):
+            return torch.autograd.grad(out_graph, (t_k, p_k), gr, retain_graph=True)
+    out_k = fwd(table, pos)
+    out_p = plain(table, pos)
+    dt_k, dp_k = bwd(table, pos, grad)
     t_ = table.clone().requires_grad_(True)
     p_ = pos.clone().requires_grad_(True)
-    plain_out = hg.cell_encode_torch(t_, p_, layout)
+    plain_out = plain(t_, p_)
     dt_p, dp_p = torch.autograd.grad(plain_out, (t_, p_), grad, retain_graph=True)
     torch.cuda.synchronize()
     fwd_err = (out_k - out_p).abs().max().item()
@@ -92,32 +121,114 @@ def kernel_phase(hg, layout, dev, seed: int) -> list[dict]:
     dp_err = (dp_k - dp_p).abs().max().item()
     dt_rel = dt_err / dt_p.abs().max().item()
     dp_rel = dp_err / dp_p.abs().max().item()
-    print(f"kernels: P={P_SLICE} levels={layout.num_levels} rows={layout.total_rows}")
-    print(f"kernels: K1 forward max abs err {fwd_err:.3e} (tol {FWD_ATOL:g})")
-    print(f"kernels: K2 dTable max err / max |dTable| {dt_rel:.3e}, "
-          f"dPos {dp_rel:.3e} (tol {BWD_RTOL:g})")
-    check(fwd_err <= FWD_ATOL, f"K1 forward error {fwd_err} > {FWD_ATOL}")
-    check(dt_rel <= BWD_RTOL, f"K2 dTable relative error {dt_rel} > {BWD_RTOL}")
-    check(dp_rel <= BWD_RTOL, f"K2 dPos relative error {dp_rel} > {BWD_RTOL}")
+    print(f"kernels: {label} forward max abs err {fwd_err:.3e} (tol {FWD_ATOL:g}); "
+          f"backward dTable max err / max |dTable| {dt_rel:.3e}, dPos {dp_rel:.3e} "
+          f"(tol {BWD_RTOL:g})")
+    check(fwd_err <= FWD_ATOL, f"{label} forward error {fwd_err} > {FWD_ATOL}")
+    check(dt_rel <= BWD_RTOL, f"{label} dTable relative error {dt_rel} > {BWD_RTOL}")
+    check(dp_rel <= BWD_RTOL, f"{label} dPos relative error {dp_rel} > {BWD_RTOL}")
+    times = {
+        "fwd_ms": median_ms(lambda: fwd(table, pos)),
+        "fwd_plain_ms": median_ms(lambda: plain(table, pos)),
+        "bwd_ms": median_ms(lambda: bwd(table, pos, grad)),
+        "bwd_plain_ms": median_ms(
+            lambda: torch.autograd.grad(plain_out, (t_, p_), grad, retain_graph=True)),
+    }
+    print(f"kernels: {label} forward {times['fwd_ms']:.4f} ms, plain "
+          f"{times['fwd_plain_ms']:.4f} ms; backward {times['bwd_ms']:.4f} ms, plain "
+          f"{times['bwd_plain_ms']:.4f} ms (median)")
+    return {"fwd_err": fwd_err, "bwd_err": max(dt_err, dp_err), **times}
 
-    fwd_ms = median_ms(lambda: hg.cell_encode_fwd_cuda(table, pos, layout))
-    fwd_plain_ms = median_ms(lambda: hg.cell_encode_torch(table, pos, layout))
-    bwd_ms = median_ms(lambda: hg.cell_encode_bwd_cuda(table, pos, grad, layout, True))
-    bwd_plain_ms = median_ms(
-        lambda: torch.autograd.grad(plain_out, (t_, p_), grad, retain_graph=True)
-    )
-    print(f"kernels: K1 forward {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms (median)")
-    print(f"kernels: K2 backward {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms (median)")
-    src = "fruitnerf_tpu_torch/csrc/cell_encode.cu"
-    tpu = "fruitnerf_tpu/ops/pallas/hash_grid.py"
+
+def _entries(r: dict, names, src: str, functions, lines, launches=(0, 0)) -> list[dict]:
+    """The kernels-JSON entries of a forward/backward pair (launches of the
+    training paths are filled in after their runs)."""
     return [
-        {"name": "cell_encode_fwd", "route": "cuda", "source": src,
-         "replaces": f"{tpu}:523", "launches": 0, "max_abs_err": fwd_err,
-         "ms": fwd_ms, "plain_ms": fwd_plain_ms},
-        {"name": "cell_encode_bwd", "route": "cuda", "source": src,
-         "replaces": f"{tpu}:581", "launches": 0, "max_abs_err": max(dt_err, dp_err),
-         "ms": bwd_ms, "plain_ms": bwd_plain_ms},
+        {"name": name, "route": "cuda", "source": src, "function": fn,
+         "replaces": f"{TPU}:{line}", "launches": n, "max_abs_err": r[f"{d}_err"],
+         "ms": r[f"{d}_ms"], "plain_ms": r[f"{d}_plain_ms"]}
+        for d, name, fn, line, n in zip(("fwd", "bwd"), names, functions, lines, launches)
     ]
+
+
+def _inputs(dev, g, rows, width, out_dim):
+    table = torch.rand((rows, width), generator=g, device=dev) * 2.0 - 1.0
+    pos = torch.rand((P_SLICE, 3), generator=g, device=dev) * 0.98 + 0.01
+    grad = torch.randn((P_SLICE, out_dim), generator=g, device=dev)
+    return table, pos, grad
+
+
+def kernel_phase(hg, cell_layout, corner_grid, dev, seed: int) -> list[dict]:
+    """Every kernel at the shapes its path gives it, against its plain
+    version: K1/K2 at the cell slice's layout, K3/K4 at the corner slice's
+    (and once at F = 4), K5/K6 (cell v1, served by the cell kernels at a
+    uniform layout) through ``grid_encode_flat(mode="cell")``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    print(f"kernels: P={P_SLICE}")
+
+    k12 = hold_pair(
+        f"K1/K2 cell v2 ({cell_layout.num_levels} levels, {cell_layout.total_rows} rows)",
+        lambda t, p: hg.cell_encode_fwd_cuda(t, p, cell_layout),
+        lambda t, p, gr: hg.cell_encode_bwd_cuda(t, p, gr, cell_layout, True),
+        lambda t, p: hg.cell_encode_torch(t, p, cell_layout),
+        *_inputs(dev, g, cell_layout.total_rows, 16, 2 * cell_layout.num_levels),
+    )
+
+    def corner(layout, feats, label):
+        return hold_pair(
+            label,
+            lambda t, p: hg.corner_encode_fwd_cuda(t, p, layout, feats),
+            lambda t, p, gr: hg.corner_encode_bwd_cuda(t, p, gr, layout, feats, True),
+            lambda t, p: hg.grid_encode_corner_torch(t, p, layout, feats),
+            *_inputs(dev, g, layout.total_rows, feats, feats * layout.num_levels),
+        )
+
+    f = corner_grid.features_per_level
+    layout = corner_grid.table_layout()
+    k34 = corner(layout, f, f"K3/K4 corner ({layout.num_levels} levels, T={layout.rows[0]}, "
+                            f"F={f}, direct {sum(layout.direct)})")
+    small = hg.corner_layout((8, 64, 1024, 2048), 4096)
+    corner(small, 4, "K3/K4 corner (4 levels, T=4096, F=4)")
+
+    res, t_v1 = corner_grid.level_resolutions(), corner_grid.table_size
+    v1 = hg.uniform_cell_layout(res, t_v1)
+
+    def flat(t, p):
+        return hg.grid_encode_flat(t, p, res, t_v1, 2, "cell")
+
+    table, pos, grad = _inputs(dev, g, v1.total_rows, 16, 2 * len(res))
+    v1_counts = flat_path_launches(hg, flat, table, pos, grad)
+    k56 = hold_pair(
+        f"K5/K6 cell v1 ({len(res)} levels, T={t_v1}, direct {sum(v1.direct)})",
+        flat, None, lambda t, p: hg.cell_encode_torch(t, p, v1), table, pos, grad,
+    )
+    cell_fns = ("cell_encode_fwd_kernel", "cell_encode_bwd_kernel")
+    return (
+        _entries(k12, ("cell_encode_fwd", "cell_encode_bwd"), CELL_SRC, cell_fns, (523, 581))
+        + _entries(k34, ("corner_encode_fwd", "corner_encode_bwd"), CORNER_SRC,
+                   ("corner_encode_fwd_kernel", "corner_encode_bwd_kernel"), (163, 203))
+        + _entries(k56, ("cell_v1_encode_fwd", "cell_v1_encode_bwd"), CELL_SRC, cell_fns,
+                   (865, 903), (v1_counts["cell_encode_fwd"], v1_counts["cell_encode_bwd"]))
+    )
+
+
+def flat_path_launches(hg, flat, table, pos, grad) -> dict:
+    """Cell v1's path: no training path reaches it, only a direct call of
+    ``grid_encode_flat(mode="cell")``. One forward and autograd backward
+    through that entry, counted alone; both kernels must launch."""
+    t_ = table.clone().requires_grad_(True)
+    p_ = pos.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    hg.reset_launch_counts()
+    flat(t_, p_).backward(grad)
+    torch.cuda.synchronize()
+    counts = dict(hg.LAUNCHES)
+    print(f"kernels: cell v1 path, one forward and backward through "
+          f"grid_encode_flat(mode='cell'): launches {counts}")
+    check(counts["cell_encode_fwd"] >= 1, "grid_encode_flat(mode='cell') skipped K5")
+    check(counts["cell_encode_bwd"] >= 1, "grid_encode_flat(mode='cell') skipped K6")
+    check(t_.grad is not None and p_.grad is not None, "the cell v1 path gave no gradient")
+    return counts
 
 
 def small_config(num_images: int):
@@ -150,6 +261,7 @@ def parity_phase(scene, dev, seed: int):
     piecewise spacing's 1/(2-2s), moves a few points across cell faces, so
     they read other rows on the two devices. The kernel phase holds K2 to
     the plain version at fixed positions instead."""
+    from fruitnerf_tpu_torch.bridge import tree_map
     from fruitnerf_tpu_torch.data.builder import dataset_from_scene
     from fruitnerf_tpu_torch.engine.trainer import compute_loss, draw_step, init_train_state
 
@@ -165,10 +277,10 @@ def parity_phase(scene, dev, seed: int):
         if device != cpu:
             state = init_train_state(
                 cfg, n, device,
-                params=_tree(state.params, lambda t: t.detach().to(device)),
+                params=tree_map(state.params, lambda t: t.detach().to(device)),
             )
             draws = dataclasses.replace(
-                draws, **{f.name: _tree(getattr(draws, f.name), lambda t: t.to(device))
+                draws, **{f.name: tree_map(getattr(draws, f.name), lambda t: t.to(device))
                           for f in dataclasses.fields(draws)},
             )
         total, losses, _ = compute_loss(state, data, cfg, draws)
@@ -184,14 +296,6 @@ def parity_phase(scene, dev, seed: int):
     print(f"parity: color_mlp.w0 grad rel err {grad_rel:.2e} (tol {GRAD_RTOL:g})")
     check(max(rel.values()) <= LOSS_RTOL, f"small-step losses differ: {rel}")
     check(grad_rel <= GRAD_RTOL, f"small-step color_mlp grad differs: {grad_rel}")
-
-
-def _tree(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _tree(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tree(v, fn) for v in tree]
-    return fn(tree)
 
 
 def slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
@@ -259,9 +363,117 @@ def slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
     return dict(hg.LAUNCHES)
 
 
+def corner_config(num_images: int):
+    """The full-width fruit_nerf preset with sparsity 0.005, its grid in
+    corner mode (uniform tables: corner mode has no two-tier caps)."""
+    from fruitnerf_tpu_torch.configs import apply_overrides, fruit_nerf
+
+    cfg = apply_overrides(fruit_nerf(num_images), {"sparsity_loss": 0.005})
+    m = cfg.model
+    grid = dataclasses.replace(m.field.grid, mode="corner", mid_table_size=None)
+    field = dataclasses.replace(m.field, grid=grid)
+    return dataclasses.replace(cfg, model=dataclasses.replace(m, field=field))
+
+
+LOSS_KEYS = ("total_loss", "rgb_loss", "semantics_loss", "interlevel_loss", "sparsity_loss")
+
+
+def corner_slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
+    """``train_loop`` on the corner-mode config: log every step, eval and
+    checkpoint every 100 steps; then the manifest, and a resume into a
+    fresh state that must equal the trained one."""
+    from fruitnerf_tpu.utils.writer import MetricWriter
+    from fruitnerf_tpu_torch.bridge import tree_leaves
+    from fruitnerf_tpu_torch.data.builder import dataset_from_scene
+    from fruitnerf_tpu_torch.engine import checkpoints as ck
+    from fruitnerf_tpu_torch.engine.trainer import init_train_state, render_camera, train_loop
+
+    n = scene["images"].shape[0]
+    data = dataset_from_scene(scene, dev)
+    cfg = dataclasses.replace(corner_config(n), max_iters=steps, steps_per_log=1,
+                              steps_per_eval=100, steps_per_save=100)
+    grid = cfg.model.field.grid
+    train_idx = set(data.train_indices.tolist())
+    held = [i for i in range(n) if i not in train_idx]
+    check(bool(held), "no held-out camera")
+    rays = cfg.train_rays_per_batch
+    print(f"corner: fruit_nerf grid in corner mode, {grid.num_levels} levels x T="
+          f"{grid.table_size} x F={grid.features_per_level} (table {list(grid.table_shape)}), "
+          f"{rays} rays/step, sparsity 0.005, train_loop to {steps} steps, eval cameras {held}")
+
+    with tempfile.TemporaryDirectory() as run_dir:
+        run = Path(run_dir)
+        writer = MetricWriter(run / "metrics.jsonl", also_print=False)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        timings: dict = {}
+        hg.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = train_loop(cfg, data, eval_indices=held, generator=gen, writer=writer,
+                           checkpoint_dir=run / "checkpoints", timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(hg.LAUNCHES)
+        writer.close()
+        records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+        train = [r for r in records if "total_loss" in r]
+        evals = [r for r in records if "eval_psnr" in r]
+        rate = steps / timings["train_s"]
+        print(f"corner: {rate:.3f} steps/s = {rate * rays:.1f} rays/s over train_s "
+              f"{timings['train_s']:.3f} s (with a host sync every step, for the log); "
+              f"wall {wall:.3f} s, "
+              f"eval_s {timings['eval_s']:.3f}, save_s {timings['save_s']:.3f} on {name}")
+        check(len(train) == steps, f"{len(train)} logged steps of {steps}")
+        check(all(math.isfinite(r[k]) for r in train for k in LOSS_KEYS), "a loss is not finite")
+        k = 20
+        psnr_first = sum(r["psnr"] for r in train[:k]) / k
+        psnr_last = sum(r["psnr"] for r in train[-k:]) / k
+        print(f"corner: first total loss {train[0]['total_loss']:.5f}, last "
+              f"{train[-1]['total_loss']:.5f}; mean train PSNR first {k} steps "
+              f"{psnr_first:.3f} dB, last {k} {psnr_last:.3f} dB")
+        check(psnr_last > psnr_first, "corner PSNR did not rise")
+        print(f"corner: launches in {steps} steps and {len(evals)} evals: {counts}")
+        check(counts["corner_encode_fwd"] >= 2 * steps, "a step skipped the corner forward kernel")
+        check(counts["corner_encode_bwd"] >= steps, "a step skipped the corner backward kernel")
+        check(counts["cell_encode_fwd"] == counts["cell_encode_bwd"] == 0,
+              "the corner path launched a cell kernel")
+        check(len(evals) == steps // 100, f"{len(evals)} evals in {steps} steps")
+        for r in evals:
+            print("corner: eval at step {step}: PSNR {eval_psnr:.3f} dB, SSIM {eval_ssim:.4f}, "
+                  "IoU {eval_iou:.4f}, {eval_num_rays_per_sec:.1f} rays/s".format(**r))
+            check(all(math.isfinite(v) for key, v in r.items() if key.startswith("eval_")),
+                  f"eval stats not finite: {r}")
+            check(-1.0 <= r["eval_ssim"] <= 1.0, f"SSIM out of [-1, 1]: {r['eval_ssim']}")
+
+        ck.write_manifest(run, cfg.preset, np.eye(4)[:3], 1.0, np.array([[-1.0] * 3, [1.0] * 3]),
+                          n, grid, extra={"config_overrides": {"sparsity_loss": 0.005}})
+        manifest = ck.read_manifest(run)
+        rebuilt = ck.grid_from_manifest(manifest)  # raises if it rebuilds another layout
+        check(rebuilt.table_layout() == grid.table_layout()
+              and rebuilt.table_shape == grid.table_shape, "the manifest rebuilt another layout")
+        rcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, field=dataclasses.replace(cfg.model.field, grid=rebuilt)))
+        gen2 = torch.Generator(device=dev).manual_seed(seed + 1)
+        fresh = init_train_state(rcfg, n, dev, generator=gen2)
+        restored, resumed = ck.resume_from_latest(run / "checkpoints", fresh, gen2)
+        check(resumed and restored.step == steps, f"resumed at step {restored.step}")
+        pairs = list(zip(tree_leaves(state.params), tree_leaves(restored.params)))
+        same = all(torch.equal(a, b) for a, b in pairs)
+        check(same, "a restored parameter differs from the trained one")
+        check(torch.equal(gen.get_state(), gen2.get_state()), "the generator state differs")
+        out_a = render_camera(state.params, data.cameras, held[0], rcfg)["rgb"]
+        out_b = render_camera(restored.params, data.cameras, held[0], rcfg)["rgb"]
+        diff = (out_a - out_b).abs().max().item()
+        print(f"corner: manifest grid entry rebuilds {rebuilt.mode} {list(rebuilt.table_shape)}; "
+              f"resumed at step {restored.step}, {len(pairs)} parameters equal; held-out "
+              f"camera {held[0]} render max abs diff {diff:g}")
+        check(diff == 0.0, "the restored state renders differently")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=400)
+    ap.add_argument("--steps", type=int, default=400, help="steps of each slice")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -283,16 +495,22 @@ def main(argv=None) -> int:
 
     info = hg.build_kernels()
     regs = [ln.strip() for ln in info.log.splitlines() if "registers" in ln]
-    print(f"build: {info.seconds:.2f} s -> {info.path.parent.name}; {'; '.join(regs)}")
+    print(f"build: {info.seconds:.2f} s -> {info.path.parent.name}; {len(regs)} kernels")
+    for ln in regs:
+        print(f"build: {ln}")
 
-    layout = fruit_nerf(1).model.field.grid.cell_layout()
-    kernels = kernel_phase(hg, layout, dev, args.seed)
+    kernels = kernel_phase(hg, fruit_nerf(1).model.field.grid.cell_layout(),
+                           corner_config(1).model.field.grid, dev, args.seed)
 
     scene = render_scene(SyntheticSceneConfig(image_size=128, num_cameras=24, seed=args.seed))
     parity_phase(scene, dev, args.seed)
-    launches = slice_phase(scene, dev, args.steps, args.seed, hg, name)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    cell_counts = slice_phase(scene, dev, args.steps, args.seed, hg, name)
+    corner_counts = corner_slice_phase(scene, dev, args.steps, args.seed, hg, name)
+    for k in kernels:  # K5/K6's launches were counted on their own path, in the kernel phase
+        if k["name"].startswith("corner_encode"):
+            k["launches"] = corner_counts[k["name"]]
+        elif k["name"].startswith("cell_encode"):
+            k["launches"] = cell_counts[k["name"]]
     check("jax" not in sys.modules, "the port imported jax")
 
     print(json.dumps({"kernels": kernels}))

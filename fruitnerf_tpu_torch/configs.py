@@ -23,12 +23,13 @@ TPU_PROPOSAL_NETS = (
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """Per-parameter-group Adam with a continuous exponential lr decay over
-    the run's ``max_iters`` (RAdam, which the big and huge presets use, is
-    still to port)."""
+    ``max_steps``, or the run's ``max_iters`` when that is None (RAdam,
+    which the big and huge presets use, is still to port)."""
 
     lr_init: float = 1e-2
     lr_final: float = 1e-4
     eps: float = 1e-15
+    max_steps: int | None = None  # None -> the run's max_iters
     warmup_steps: int = 0  # lr held at 0 until this step
     weight_decay: float = 0.0  # decoupled, scaled by the lr (AdamW)
 
@@ -44,6 +45,9 @@ class TrainConfig:
     max_iters: int = 30000
     train_rays_per_batch: int = 4096
     eval_rays_per_chunk: int = 1 << 15
+    steps_per_save: int = 2000
+    steps_per_eval: int = 500
+    steps_per_log: int = 100
     fields_opt: OptimizerConfig = OptimizerConfig()
     proposal_opt: OptimizerConfig = OptimizerConfig()
     # appearance embeddings: lower lr and decoupled decay keep them near the

@@ -1,6 +1,6 @@
-"""Training engine: device-resident data, the train step, per-group Adam and
-the chunked eval render. Twin of ``fruitnerf_tpu/engine/trainer.py`` (the
-outer loop, checkpoints and eval metrics are still to port).
+"""Training engine: device-resident data, the train step, per-group Adam,
+the chunked eval render, eval metrics and the outer ``train_loop``. Twin of
+``fruitnerf_tpu/engine/trainer.py``.
 
 Every random draw of a step is made in one place, ``draw_step``, from an
 explicit ``torch.Generator``; ``train_step`` takes the draws, so a test can
@@ -9,15 +9,21 @@ inject the JAX step's draws instead.
 from __future__ import annotations
 
 import dataclasses
+import signal
+import threading
+import time
 
 import numpy as np
 import torch
 
+from ..bridge import tree_leaves
 from ..cameras.camera_opt import exp_map_so3xr3, init_camera_opt
 from ..cameras.cameras import Cameras, frustum_coverage, generate_image_rays, generate_rays
 from ..configs import OptimizerConfig, TrainConfig
 from ..fields.fruit_field import get_density
 from ..models.fruit_model import forward_train, init_fruit_model, loss_dict, metrics_dict
+from ..utils import metrics as M
+from .checkpoints import save_checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,29 +67,27 @@ def build_device_dataset(
 
 def learning_rate(opt: OptimizerConfig, step: int, max_iters: int) -> float:
     """optax's continuous ``exponential_decay`` from lr_init to lr_final over
-    ``max_iters``; with a warmup, lr is 0 until ``warmup_steps`` and the
-    decay's count restarts there (``join_schedules``)."""
+    ``opt.max_steps`` (``max_iters`` when None); with a warmup, lr is 0
+    until ``warmup_steps`` and the decay's count restarts there
+    (``join_schedules``)."""
     if step < opt.warmup_steps:
         return 0.0
     count = step - opt.warmup_steps
-    return opt.lr_init * (opt.lr_final / opt.lr_init) ** (count / max_iters)
+    steps = opt.max_steps or max_iters
+    return opt.lr_init * (opt.lr_final / opt.lr_init) ** (count / steps)
 
 
 def _group_params(params: dict) -> dict[str, list[torch.Tensor]]:
+    """Each group's tensors in the canonical leaf order, so that an
+    optimizer state restores onto the same tensors however the parameter
+    dicts were built (``init_train_state`` or ``bridge``)."""
     field = params["model"]["field"]
     return {
-        "fields": [t for k, v in field.items() if k != "appearance" for t in _leaves(v)],
+        "fields": tree_leaves({k: v for k, v in field.items() if k != "appearance"}),
         "appearance": [field["appearance"]],
-        "proposal_networks": _leaves(params["model"]["proposal_networks"]),
+        "proposal_networks": tree_leaves(params["model"]["proposal_networks"]),
         "camera_opt": [params["camera_opt"]],
     }
-
-
-def _leaves(tree) -> list[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    items = tree.values() if isinstance(tree, dict) else tree
-    return [t for v in items for t in _leaves(v)]
 
 
 def _group_configs(config: TrainConfig) -> dict[str, OptimizerConfig]:
@@ -136,7 +140,7 @@ def init_train_state(
             "model": init_fruit_model(config.model, generator, device),
             "camera_opt": init_camera_opt(num_cameras, device),
         }
-    for t in _leaves(params):
+    for t in tree_leaves(params):
         t.requires_grad_(True)
     return TrainState(params=params, optimizer=make_optimizer(params, config))
 
@@ -273,3 +277,142 @@ def render_camera(
         for k in _PANELS:
             parts[k].append(out[k])
     return {k: torch.cat(v).reshape(h, w, *v[0].shape[1:]) for k, v in parts.items()}
+
+
+# ---------------------------------------------------------------------------
+# eval metrics and the outer loop
+# ---------------------------------------------------------------------------
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def evaluate_image(
+    params: dict, data: DeviceDataset, camera_index: int, config: TrainConfig
+) -> tuple[dict, dict]:
+    """Render one eval camera -> ({psnr, ssim, iou, iou_reference_quirk,
+    num_rays_per_sec, fps} as floats, the rendered panels)."""
+    dev = data.images.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = render_camera(params, data.cameras, camera_index, config)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    h, w = out["rgb"].shape[:2]
+    gt = data.images[camera_index].float() / 255.0
+    mask = data.masks[camera_index].float()
+    logits = out["semantics"][..., 0]
+    m = torch.stack([
+        M.psnr(out["rgb"], gt), M.ssim(out["rgb"], gt), M.binary_iou(logits, mask),
+        M.binary_iou_reference_quirk(logits, mask),
+    ]).tolist()  # one device-to-host copy
+    stats = dict(zip(("psnr", "ssim", "iou", "iou_reference_quirk"), m))
+    stats.update(num_rays_per_sec=h * w / dt, fps=1.0 / dt)
+    return stats, out
+
+
+def evaluate_all(params: dict, data: DeviceDataset, indices, config: TrainConfig) -> dict:
+    """Eval metrics and throughput averaged over the cameras ``indices``."""
+    all_stats = [evaluate_image(params, data, int(ci), config)[0] for ci in indices]
+    return {k: float(np.mean([s[k] for s in all_stats])) for k in all_stats[0]}
+
+
+def train_loop(
+    config: TrainConfig,
+    data: DeviceDataset,
+    eval_indices=None,
+    state: TrainState | None = None,
+    generator: torch.Generator | None = None,
+    writer=None,
+    checkpoint_dir=None,
+    callbacks=(),
+    timings: dict | None = None,
+) -> TrainState:
+    """Train from ``state.step`` (a fresh state when None) to
+    ``config.max_iters``, one ``train_step`` at a time.
+
+    * Every ``steps_per_log`` steps the step's metrics go to ``writer``
+      (``fruitnerf_tpu.utils.writer.MetricWriter``).
+    * Every ``steps_per_eval`` steps one camera of ``eval_indices`` is
+      evaluated, rotating through them; its stats go to ``writer`` as
+      ``eval_*``.
+    * Every ``steps_per_save`` steps, and at the end, the state and the
+      generator's state are checkpointed to ``checkpoint_dir``.
+    * With a ``checkpoint_dir``, SIGTERM and SIGINT (handled on the main
+      thread only) checkpoint after the current step and return early;
+      ``checkpoints.resume_from_latest`` picks the run up.
+    * Each ``callbacks`` entry is called as ``cb(step, state, metrics)``
+      after every step.
+
+    All draws come from ``generator`` (seeded with ``config.seed`` when
+    None), which also initialises a fresh state. ``timings`` (optional) is
+    filled with the wall seconds of each section: train_s, eval_s, save_s.
+    """
+    dev = data.images.device
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(config.seed)
+    if state is None:
+        state = init_train_state(config, data.cameras.num_cameras, dev, generator=generator)
+    if timings is None:
+        timings = {}
+    for k in ("train_s", "eval_s", "save_s"):
+        timings.setdefault(k, 0.0)
+
+    def every(n: int, it: int) -> bool:
+        return n > 0 and it % n == 0
+
+    stop = threading.Event()
+    prev_handlers = {}
+    if checkpoint_dir is not None and threading.current_thread() is threading.main_thread():
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            prev_handlers[sig] = signal.signal(sig, lambda signum, frame: stop.set())
+    do_eval = eval_indices is not None and len(eval_indices) > 0
+    try:
+        it = state.step
+        t_train = time.perf_counter()
+        while it < config.max_iters:
+            metrics = train_step(state, data, config, generator)
+            it = state.step
+            if writer is not None and every(config.steps_per_log, it):
+                names = list(metrics)
+                values = torch.stack([metrics[k].float() for k in names]).tolist()
+                writer.write(it, dict(zip(names, values)))
+            eval_now = do_eval and every(config.steps_per_eval, it)
+            save_now = checkpoint_dir is not None and every(config.steps_per_save, it)
+            if stop.is_set() or eval_now or save_now:
+                _sync(dev)  # the queued steps count as training time
+                timings["train_s"] += time.perf_counter() - t_train
+                if stop.is_set():
+                    path = save_checkpoint(checkpoint_dir, state, generator)
+                    print(f"train_loop: signal received; checkpointed step {it} to "
+                          f"{path}; exiting early", flush=True)
+                    return state
+                t0 = time.perf_counter()
+                if eval_now:
+                    which = (it // config.steps_per_eval - 1) % len(eval_indices)
+                    stats, _ = evaluate_image(
+                        state.params, data, int(eval_indices[which]), config
+                    )
+                    if writer is not None:
+                        writer.write(it, {f"eval_{k}": v for k, v in stats.items()})
+                t1 = time.perf_counter()
+                timings["eval_s"] += t1 - t0
+                if save_now:
+                    save_checkpoint(checkpoint_dir, state, generator)
+                timings["save_s"] += time.perf_counter() - t1
+                t_train = time.perf_counter()
+            for cb in callbacks:
+                cb(it, state, metrics)
+        _sync(dev)
+        timings["train_s"] += time.perf_counter() - t_train
+        if checkpoint_dir is not None and config.steps_per_save > 0 \
+                and not every(config.steps_per_save, it):
+            t0 = time.perf_counter()
+            save_checkpoint(checkpoint_dir, state, generator)
+            timings["save_s"] += time.perf_counter() - t0
+        return state
+    finally:
+        for sig, handler in prev_handlers.items():
+            signal.signal(sig, handler)

@@ -1,9 +1,8 @@
-"""Input encodings: the cell-mode multiresolution grid, spherical harmonics,
-frequency. Twin of ``fruitnerf_tpu/fields/encodings.py``.
+"""Input encodings: the multiresolution grid (cell and corner modes),
+spherical harmonics, frequency. Twin of ``fruitnerf_tpu/fields/encodings.py``.
 
-Only the grid's cell mode (2 features a level) is ported: the JAX package's
-corner mode and the XLA ``hash_encode`` are still to port (ROADMAP Queue 1
-and Queue 2).
+The XLA ``hash_encode`` of the JAX package is still to port (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
@@ -12,24 +11,32 @@ import math
 
 import torch
 
-from ..ops.hash_grid import CellLayout, cell_encode, cell_level_layout
+from ..ops.hash_grid import (
+    CellLayout, cell_encode, cell_level_layout, corner_layout, grid_encode_flat,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class GridEncodingConfig:
-    """Multiresolution grid, instant-ngp levels, one 16-float row per cell
-    (8 corners x 2 features). ``table_size`` caps each level's rows; with
-    ``mid_table_size`` set, only the finest ``fine_levels`` levels get
-    ``table_size`` rows and every earlier level is capped at
-    ``mid_table_size``. ``radix`` only fixes the JAX package's
-    ``[K_l, LO_l*16]`` array shapes, which the bridge converts."""
+    """Multiresolution grid, instant-ngp levels.
+
+    ``mode="cell"``: one 16-float row per cell (8 corners x 2 features);
+    ``table_size`` caps each level's rows, and with ``mid_table_size`` set
+    only the finest ``fine_levels`` levels get ``table_size`` rows and every
+    earlier level is capped at ``mid_table_size``. ``radix`` only fixes the
+    JAX package's ``[K_l, LO_l*16]`` array shapes, which the bridge converts.
+
+    ``mode="corner"``: exact instant-ngp trilinear corner sharing, one
+    uniform table of ``table_size`` rows x ``features_per_level`` a level."""
 
     num_levels: int = 16
+    features_per_level: int = 2
     table_size: int = 8192
     base_res: int = 16
     max_res: int = 2048
     mid_table_size: int | None = None
     fine_levels: int = 4
+    mode: str = "cell"
     radix: int = 512
 
     def __post_init__(self):
@@ -55,10 +62,24 @@ class GridEncodingConfig:
                 f"GridEncodingConfig.fine_levels must be in "
                 f"[0, num_levels]; got {self.fine_levels}"
             )
+        if self.mode not in ("cell", "corner"):
+            raise ValueError(
+                f"GridEncodingConfig.mode must be 'cell' or 'corner'; got {self.mode!r}"
+            )
+        if m is not None and self.mode != "cell":
+            raise ValueError(
+                "GridEncodingConfig.mid_table_size (two-tier capacity) is "
+                f"only implemented for mode='cell'; got mode={self.mode!r}"
+            )
+        if self.mode == "cell" and self.features_per_level != 2:
+            raise ValueError(
+                "cell mode packs 8 corners x F=2 features into 16-float rows; "
+                f"features_per_level must be 2, got {self.features_per_level}"
+            )
 
     @property
     def out_dim(self) -> int:
-        return 2 * self.num_levels
+        return self.num_levels * self.features_per_level
 
     @property
     def growth_factor(self) -> float:
@@ -87,30 +108,52 @@ class GridEncodingConfig:
         )
 
     def level_layout(self):
-        """Per-level (T_l, K_l, LO_l, use_direct)."""
+        """Cell mode: per-level (T_l, K_l, LO_l, use_direct)."""
         return cell_level_layout(
             self.level_resolutions(), self.level_caps(), self.radix
         )
 
     def cell_layout(self) -> CellLayout:
+        """Cell mode: where each level lives in the flat [sum T_l, 16] table."""
         return CellLayout.from_levels(self.level_resolutions(), self.level_layout())
+
+    def table_layout(self) -> CellLayout:
+        """Either mode: each level's rows and direct flag in the flat table."""
+        if self.mode == "corner":
+            return corner_layout(self.level_resolutions(), self.table_size)
+        return self.cell_layout()
+
+    @property
+    def table_shape(self) -> tuple[int, int]:
+        """[sum T_l, 16] in cell mode, [L*T, F] in corner mode."""
+        width = self.features_per_level if self.mode == "corner" else 16
+        return (self.table_layout().total_rows, width)
 
 
 def init_grid_table(
     config: GridEncodingConfig, generator: torch.Generator, device
 ) -> torch.Tensor:
-    """Flat [sum T_l, 16] table, uniform(-1e-4, 1e-4) like instant-ngp."""
-    rows = config.cell_layout().total_rows
-    u = torch.rand((rows, 16), generator=generator, device=device)
+    """The flat table (``config.table_shape``), uniform(-1e-4, 1e-4) like
+    instant-ngp."""
+    u = torch.rand(config.table_shape, generator=generator, device=device)
     return u * 2e-4 - 1e-4
 
 
 def grid_encode(
     table: torch.Tensor, positions: torch.Tensor, config: GridEncodingConfig
 ) -> torch.Tensor:
-    """positions [..., 3] in [0,1]^3 -> features [..., L*F] float32."""
+    """positions [..., 3] in [0,1]^3 -> features [..., L*F] float32. Cell
+    mode runs ``cell_encode``; corner mode runs ``grid_encode_flat``, as the
+    JAX package does."""
     batch_shape = positions.shape[:-1]
-    out = cell_encode(table, positions.reshape(-1, 3), config.cell_layout())
+    pos = positions.reshape(-1, 3)
+    if config.mode == "cell":
+        out = cell_encode(table, pos, config.cell_layout())
+    else:
+        out = grid_encode_flat(
+            table, pos, config.level_resolutions(), config.table_size,
+            config.features_per_level, config.mode,
+        )
     return out.reshape(*batch_shape, config.out_dim)
 
 

@@ -1,7 +1,7 @@
 """FruitField: grid NeRF with RGB, density and a binary semantic head. Twin
 of ``fruitnerf_tpu/fields/fruit_field.py`` for ``encoding="grid"``:
 
-  positions --contract(inf)--> [0,1]^3 --cell grid--> base MLP
+  positions --contract(inf)--> [0,1]^3 --grid (cell or corner)--> base MLP
       -> density (trunc_exp, f32) + geo features
   [SH(dir), geo, appearance embedding] -> color MLP -> sigmoid RGB
   detached geo -> semantic MLP -> linear head -> 1 fruit logit

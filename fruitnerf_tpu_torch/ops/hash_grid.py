@@ -1,18 +1,26 @@
-"""Cell-mode multiresolution grid encoding: the CUDA kernel pair, its build,
-its autograd Function, and the plain PyTorch version.
+"""Multiresolution grid encodings: the CUDA kernels, their build, their
+autograd Functions, and the plain PyTorch versions. Twin of
+``fruitnerf_tpu/ops/pallas/hash_grid.py``.
 
-Twin of ``fruitnerf_tpu/ops/pallas/hash_grid.py:cell_encode``. The table is
-ONE flat float32 parameter ``[sum_l T_l, 16]``: level l occupies rows
-``offset_l .. offset_l + T_l``, and row t holds cell t's 8 corners x 2
-features (corner c = 4cx + 2cy + cz at columns 2c, 2c+1). The JAX package
-keeps per-level ``[K_l, LO_l*16]`` arrays with the same row-major content
-(``fruitnerf_tpu_torch.bridge`` converts).
+Every table is ONE flat float32 parameter; level l occupies rows
+``offset_l .. offset_l + T_l`` (``CellLayout``).
 
-``cell_encode`` takes the plain version for CPU tensors and launches the
-kernels (``csrc/cell_encode.cu``) for CUDA tensors; there is no fallback
-from one to the other. The kernels are compiled with nvcc for sm_90a at
-first use into ``fruitnerf_tpu_torch/_build/<source hash>/`` and loaded
-with ctypes.
+* ``cell_encode`` (cell mode v2, TPU kernels K1/K2): ``[sum_l T_l, 16]``,
+  row t holds cell t's 8 corners x 2 features (corner c = 4cx + 2cy + cz
+  at columns 2c, 2c+1). The JAX package keeps per-level ``[K_l, LO_l*16]``
+  arrays with the same row-major content.
+* ``grid_encode_flat(mode="corner")`` (K3/K4): ``[L*T, F]``, row t of level
+  l holds corner entry t's F features. The JAX package keeps
+  ``[L, 128, F*T/128]`` with f-major lanes.
+* ``grid_encode_flat(mode="cell")`` (cell v1, K5/K6): cell mode at one
+  uniform T, ``[L*T, 16]``; it runs the cell-mode kernels at that layout.
+
+``fruitnerf_tpu_torch.bridge`` converts the layouts. Each encoding takes
+the plain version for CPU tensors and launches the kernels
+(``csrc/cell_encode.cu``, ``csrc/corner_encode.cu``) for CUDA tensors;
+there is no fallback from one to the other. The kernels are compiled with
+nvcc for sm_90a at first use into
+``fruitnerf_tpu_torch/_build/<source hash>/`` and loaded with ctypes.
 """
 from __future__ import annotations
 
@@ -31,18 +39,22 @@ import torch
 _P1 = 2654435761
 _P2 = 805459861
 _MASK32 = 0xFFFFFFFF
-MAX_LEVELS = 32  # CELL_MAX_LEVELS in csrc/cell_encode.cu
+MAX_LEVELS = 32  # CELL_MAX_LEVELS and CORNER_MAX_LEVELS in csrc/
+MAX_CORNER_FEATURES = 8  # CORNER_MAX_FEATURES in csrc/corner_encode.cu
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
-_SOURCES = ("cell_encode.cu",)
+_SOURCES = ("cell_encode.cu", "corner_encode.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Launch counts of the two kernels, raised by one where each is launched.
-LAUNCHES = {"cell_encode_fwd": 0, "cell_encode_bwd": 0}
+# Launch counts of the kernels, raised by one where each is launched.
+LAUNCHES = {
+    "cell_encode_fwd": 0, "cell_encode_bwd": 0,
+    "corner_encode_fwd": 0, "corner_encode_bwd": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -80,7 +92,8 @@ def cell_level_layout(resolutions, table_size, radix: int):
 
 @dataclasses.dataclass(frozen=True)
 class CellLayout:
-    """Where each level lives in the flat table."""
+    """Where each level lives in a flat table: its rows and whether its
+    index is direct (else hashed). Used by both modes."""
 
     resolutions: tuple[int, ...]
     rows: tuple[int, ...]  # T_l
@@ -111,8 +124,24 @@ class CellLayout:
         )
 
 
+def uniform_cell_layout(resolutions, table_size) -> CellLayout:
+    """Cell v1 (K5/K6): T cells at every level, direct when res^3 <= T, as
+    the JAX package's ``_smem_level_arrays``."""
+    res = tuple(int(r) for r in resolutions)
+    t = int(table_size)
+    return CellLayout(res, (t,) * len(res), tuple(r**3 <= t for r in res))
+
+
+def corner_layout(resolutions, table_size) -> CellLayout:
+    """Corner mode (K3/K4): T corner entries at every level, direct with
+    stride res+1 when the (res+1)^3 corners fit."""
+    res = tuple(int(r) for r in resolutions)
+    t = int(table_size)
+    return CellLayout(res, (t,) * len(res), tuple((r + 1) ** 3 <= t for r in res))
+
+
 # ---------------------------------------------------------------------------
-# plain PyTorch version (CPU path; the reference the kernels are held to)
+# plain PyTorch versions (CPU path; the reference the kernels are held to)
 # ---------------------------------------------------------------------------
 
 # corner bits of c = 4cx + 2cy + cz
@@ -132,14 +161,7 @@ def _cell_rows(positions: torch.Tensor, layout: CellLayout):
     frac = s - cell
     ix, iy, iz = cell.long().unbind(-1)  # [P, L]
     res = torch.tensor(layout.resolutions, dtype=torch.int64, device=dev)
-    rows = torch.tensor(layout.rows, dtype=torch.int64, device=dev)
-    direct_idx = ix + iy * res + iz * res * res
-    hashed = (ix ^ ((iy * _P1) & _MASK32) ^ ((iz * _P2) & _MASK32)) & (rows - 1)
-    direct = torch.tensor(layout.direct, dtype=torch.bool, device=dev)
-    idx = torch.where(direct, direct_idx, hashed)
-    valid = (idx >= 0) & (idx < rows)
-    offsets = torch.tensor(layout.offsets, dtype=torch.int64, device=dev)
-    flat = offsets + torch.minimum(idx.clamp_min(0), rows - 1)
+    flat, valid = _hash_or_direct(ix, iy, iz, res, layout)
     return flat, valid, frac
 
 
@@ -162,6 +184,51 @@ def cell_encode_torch(
     w8 = wx * wy * wz
     out = (rows.view(p, layout.num_levels, 8, 2) * w8[..., None]).sum(-2)
     return out.reshape(p, 2 * layout.num_levels)
+
+
+def _hash_or_direct(ix, iy, iz, stride, layout: CellLayout):
+    """Integer coordinates [P, L, ...] int64 -> (flat row index, valid):
+    direct ``ix + iy*stride + iz*stride^2`` or the instant-ngp hash masked
+    to 32 bits (the kernels' uint32 products wrap), then ``& (T_l - 1)``.
+    An index outside [0, T_l) is invalid and clamped."""
+    dev = ix.device
+    extra = (1,) * (ix.dim() - 2)  # broadcast the per-level values over [P, L, ...]
+    rows = torch.tensor(layout.rows, dtype=torch.int64, device=dev).view(-1, *extra)
+    direct = torch.tensor(layout.direct, dtype=torch.bool, device=dev).view(-1, *extra)
+    offsets = torch.tensor(layout.offsets, dtype=torch.int64, device=dev).view(-1, *extra)
+    direct_idx = ix + iy * stride + iz * stride * stride
+    hashed = (ix ^ ((iy * _P1) & _MASK32) ^ ((iz * _P2) & _MASK32)) & (rows - 1)
+    idx = torch.where(direct, direct_idx, hashed)
+    valid = (idx >= 0) & (idx < rows)
+    return offsets + torch.minimum(idx.clamp_min(0), rows - 1), valid
+
+
+def grid_encode_corner_torch(
+    table: torch.Tensor, positions: torch.Tensor, layout: CellLayout, features: int
+) -> torch.Tensor:
+    """Corner mode, the twin of the JAX package's ``grid_encode_ref``:
+    table [L*T, F] f32, positions [P, 3] in [0,1]^3 -> [P, L*F] f32,
+    level-major. Corner c = 4cx + 2cy + cz of the cell is entry
+    (ix+cx, iy+cy, iz+cz), direct with stride res+1 or hashed; autograd
+    gives dTable and dPositions. An index outside [0, T) reads zero, as the
+    Pallas kernel's one-hot does (``grid_encode_ref``'s take gives NaN)."""
+    p, dev = positions.shape[0], positions.device
+    res_f = torch.tensor(layout.resolutions, dtype=torch.float32, device=dev)
+    s = positions.float()[:, None, :] * res_f[None, :, None]  # [P, L, 3]
+    f0 = torch.floor(s)
+    frac = s - f0
+    bits = torch.tensor((_CX, _CY, _CZ), dtype=torch.int64, device=dev)  # [3, 8]
+    ix, iy, iz = (f0.long()[..., :, None] + bits).unbind(-2)  # [P, L, 8]
+    stride = torch.tensor(layout.resolutions, dtype=torch.int64, device=dev)[:, None] + 1
+    flat, valid = _hash_or_direct(ix, iy, iz, stride, layout)
+    rows = table[flat]  # [P, L, 8, F]
+    rows = torch.where(valid[..., None], rows, torch.zeros_like(rows))
+    on = bits.bool()
+    tx, ty, tz = (frac[..., a : a + 1] for a in range(3))  # [P, L, 1]
+    w8 = torch.where(on[0], tx, 1.0 - tx) * torch.where(on[1], ty, 1.0 - ty) \
+        * torch.where(on[2], tz, 1.0 - tz)  # [P, L, 8]
+    out = (rows * w8[..., None]).sum(-2)  # [P, L, F]
+    return out.reshape(p, layout.num_levels * features)
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +305,12 @@ def build_kernels() -> BuildInfo:
         ptr, ptr, ptr, ptr, ptr, i32, i32, i32, arr, arr, arr, arr, ptr,
     ]
     lib.cell_encode_bwd.restype = i32
+    lib.corner_encode_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, arr, arr, arr, arr, ptr]
+    lib.corner_encode_fwd.restype = i32
+    lib.corner_encode_bwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, arr, arr, arr, arr, ptr,
+    ]
+    lib.corner_encode_bwd.restype = i32
     _LIB = lib
     _BUILD_INFO = BuildInfo(
         lib_path, seconds, log_path.read_text() if log_path.exists() else ""
@@ -263,8 +336,9 @@ def _level_arrays(layout: CellLayout):
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device, align: int = 4):
-    """The kernels read the table as float4 (16-byte aligned) and the
-    gradient as float2 (8-byte aligned)."""
+    """The cell kernels read the table as float4 (16-byte aligned) and the
+    gradient as float2 (8-byte aligned); the corner kernels read table rows
+    as float2 or float4 where F is 2 or 4."""
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != torch.float32:
@@ -342,18 +416,116 @@ class _CellEncodeCUDA(torch.autograd.Function):
         return (dtable if ctx.needs_input_grad[0] else None), dpos, None
 
 
+def _device_type(table: torch.Tensor, positions: torch.Tensor, what: str) -> str:
+    if table.device != positions.device:
+        raise ValueError(
+            f"table on {table.device} but positions on {positions.device}"
+        )
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {table.device}")
+    return table.device.type
+
+
 def cell_encode(
     table: torch.Tensor, positions: torch.Tensor, layout: CellLayout
 ) -> torch.Tensor:
     """[P, 3] positions in [0,1)^3 -> [P, 2L] features. CPU tensors take the
     plain version; CUDA tensors launch the kernels, whose backward computes
     dPositions only when ``positions`` needs a gradient."""
-    if table.device != positions.device:
-        raise ValueError(
-            f"table on {table.device} but positions on {positions.device}"
-        )
-    if table.device.type == "cpu":
+    if _device_type(table, positions, "cell_encode") == "cpu":
         return cell_encode_torch(table, positions, layout)
-    if table.device.type != "cuda":
-        raise ValueError(f"cell_encode runs on cpu or cuda, not {table.device}")
     return _CellEncodeCUDA.apply(table, positions.contiguous(), layout)
+
+
+def _check_features(features: int):
+    if not 1 <= features <= MAX_CORNER_FEATURES:
+        raise ValueError(
+            f"corner kernels take 1..{MAX_CORNER_FEATURES} features a level, got {features}"
+        )
+
+
+def corner_encode_fwd_cuda(
+    table: torch.Tensor, positions: torch.Tensor, layout: CellLayout, features: int
+) -> torch.Tensor:
+    """Forward kernel (K3): -> [P, L*F] float32."""
+    _check_features(features)
+    dev = table.device
+    p = positions.shape[0]
+    _check("table", table, (layout.total_rows, features), dev, align=16)
+    _check("positions", positions, (p, 3), dev)
+    out = torch.empty((p, features * layout.num_levels), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().corner_encode_fwd(
+        positions.data_ptr(), table.data_ptr(), out.data_ptr(), p, features,
+        layout.num_levels, *_level_arrays(layout), stream,
+    )
+    _raise_on(err, "corner_encode_fwd")
+    LAUNCHES["corner_encode_fwd"] += 1
+    return out
+
+
+def corner_encode_bwd_cuda(
+    table: torch.Tensor, positions: torch.Tensor, grad: torch.Tensor,
+    layout: CellLayout, features: int, needs_pos_grad: bool,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Backward kernel (K4): -> (dTable [L*T, F], dPositions [P, 3] or None)."""
+    _check_features(features)
+    dev = table.device
+    p = positions.shape[0]
+    _check("table", table, (layout.total_rows, features), dev, align=16)
+    _check("positions", positions, (p, 3), dev)
+    _check("grad", grad, (p, features * layout.num_levels), dev)
+    dtable = torch.zeros_like(table)
+    dpos = torch.empty_like(positions) if needs_pos_grad else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().corner_encode_bwd(
+        positions.data_ptr(), table.data_ptr(), grad.data_ptr(),
+        dtable.data_ptr(), dpos.data_ptr() if needs_pos_grad else None,
+        p, features, int(needs_pos_grad), layout.num_levels,
+        *_level_arrays(layout), stream,
+    )
+    _raise_on(err, "corner_encode_bwd")
+    LAUNCHES["corner_encode_bwd"] += 1
+    return dtable, dpos
+
+
+class _CornerEncodeCUDA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, positions, layout, features):
+        ctx.layout, ctx.features = layout, features
+        ctx.save_for_backward(table, positions)
+        return corner_encode_fwd_cuda(table, positions, layout, features)
+
+    @staticmethod
+    def backward(ctx, grad):
+        table, positions = ctx.saved_tensors
+        dtable, dpos = corner_encode_bwd_cuda(
+            table, positions, grad.contiguous(), ctx.layout, ctx.features,
+            ctx.needs_input_grad[1],
+        )
+        return (dtable if ctx.needs_input_grad[0] else None), dpos, None, None
+
+
+def grid_encode_flat(
+    table: torch.Tensor, positions: torch.Tensor, resolutions, table_size: int,
+    features: int, mode: str,
+) -> torch.Tensor:
+    """Twin of the JAX package's ``grid_encode_flat`` without its TPU-only
+    arguments: compute is float32, and dPositions is taken whenever
+    ``positions`` needs a gradient. positions [P, 3] in [0,1]^3 ->
+    [P, L*F], level-major.
+
+    mode="corner": table [L*T, F]; CUDA tensors launch K3/K4
+    (``csrc/corner_encode.cu``). mode="cell" (cell v1, F = 2): table
+    [L*T, 16]; it is ``cell_encode`` at ``uniform_cell_layout``, whose
+    kernels compute what K5/K6 compute."""
+    if mode == "cell":
+        if features != 2:
+            raise ValueError(f"cell mode packs F=2 features a level, got {features}")
+        return cell_encode(table, positions, uniform_cell_layout(resolutions, table_size))
+    if mode != "corner":
+        raise ValueError(f"grid_encode_flat mode must be 'cell' or 'corner', got {mode!r}")
+    layout = corner_layout(resolutions, table_size)
+    if _device_type(table, positions, "grid_encode_flat") == "cpu":
+        return grid_encode_corner_torch(table, positions, layout, features)
+    return _CornerEncodeCUDA.apply(table, positions.contiguous(), layout, features)

@@ -1,5 +1,5 @@
-"""The CUDA cell_encode kernels against their plain PyTorch version, on a
-card. Every test here is marked ``gpu`` and skips without one. This file
+"""The CUDA kernels (cell_encode, corner_encode, and the cell-v1 route of
+grid_encode_flat) against their plain PyTorch versions, on a card. Every test here is marked ``gpu`` and skips without one. This file
 imports no JAX, so it runs on the GPU machine, which has none:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
@@ -87,3 +87,77 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         hg.cell_encode_fwd_cuda(flat[1:].view(layout.total_rows, 16), pos, layout)
     with pytest.raises(ValueError, match="table on"):
         hg.cell_encode(table, pos.cpu(), layout)
+
+
+# corner mode: a direct level whose corners fill their table (8^3 = 512
+# entries at res 7), then hashed levels up to res 2048
+CORNER_RES = (7, 64, 1024, 2048)
+CORNER_T = 512
+
+
+def _corner_inputs(dev, features, n=3000):
+    layout = hg.corner_layout(CORNER_RES, CORNER_T)
+    g = torch.Generator(device=dev).manual_seed(1)
+    table = torch.rand((layout.total_rows, features), generator=g, device=dev) * 2 - 1
+    pos = torch.rand((n, 3), generator=g, device=dev)
+    pos[0] = torch.tensor([0.5, 0.5, 1.0])  # its +z corners index past level 0's table
+    grad = torch.randn((n, features * layout.num_levels), generator=g, device=dev)
+    return layout, table, pos, grad
+
+
+@pytest.mark.parametrize("features", [2, 4])
+def test_corner_kernels_match_plain(dev, features):
+    layout, table, pos, grad = _corner_inputs(dev, features)
+    assert layout.direct == (True, False, False, False)
+    out = hg.corner_encode_fwd_cuda(table, pos, layout, features)
+    ref = hg.grid_encode_corner_torch(table, pos, layout, features)
+    torch.testing.assert_close(out, ref, atol=FWD_ATOL, rtol=0)
+    dt, dp = hg.corner_encode_bwd_cuda(table, pos, grad, layout, features, True)
+    t_ = table.clone().requires_grad_(True)
+    p_ = pos.clone().requires_grad_(True)
+    hg.grid_encode_corner_torch(t_, p_, layout, features).backward(grad)
+    assert _rel(dt, t_.grad) <= BWD_RTOL
+    assert _rel(dp, p_.grad) <= BWD_RTOL
+
+
+def test_corner_autograd_function_and_launch_counts(dev):
+    layout, table, pos, grad = _corner_inputs(dev, 2)
+    t_ = table.clone().requires_grad_(True)
+    p_ = pos.clone().requires_grad_(True)
+    before = dict(hg.LAUNCHES)
+    out = hg.grid_encode_flat(t_, p_, CORNER_RES, CORNER_T, 2, "corner")
+    out.backward(grad)
+    assert hg.LAUNCHES["corner_encode_fwd"] == before["corner_encode_fwd"] + 1
+    assert hg.LAUNCHES["corner_encode_bwd"] == before["corner_encode_bwd"] + 1
+    t2 = table.clone().requires_grad_(True)
+    p2 = pos.clone().requires_grad_(True)
+    hg.grid_encode_corner_torch(t2, p2, layout, 2).backward(grad)
+    assert _rel(t_.grad, t2.grad) <= BWD_RTOL and _rel(p_.grad, p2.grad) <= BWD_RTOL
+    with pytest.raises(ValueError, match="features"):
+        hg.corner_encode_fwd_cuda(torch.zeros((layout.total_rows, 9), device=dev), pos,
+                                  layout, 9)
+
+
+def test_cell_v1_route_matches_plain(dev):
+    """grid_encode_flat(mode="cell") launches the cell kernels at the
+    uniform layout (direct where res^3 <= T)."""
+    res, t = (8, 16, 1024), 512
+    layout = hg.uniform_cell_layout(res, t)
+    assert layout.direct == (True, False, False)
+    g = torch.Generator(device=dev).manual_seed(2)
+    table = torch.rand((layout.total_rows, 16), generator=g, device=dev) * 2 - 1
+    pos = torch.rand((3000, 3), generator=g, device=dev)
+    grad = torch.randn((3000, 2 * len(res)), generator=g, device=dev)
+    t_ = table.clone().requires_grad_(True)
+    p_ = pos.clone().requires_grad_(True)
+    before = dict(hg.LAUNCHES)
+    out = hg.grid_encode_flat(t_, p_, res, t, 2, "cell")
+    out.backward(grad)
+    assert hg.LAUNCHES["cell_encode_fwd"] == before["cell_encode_fwd"] + 1
+    assert hg.LAUNCHES["cell_encode_bwd"] == before["cell_encode_bwd"] + 1
+    t2 = table.clone().requires_grad_(True)
+    p2 = pos.clone().requires_grad_(True)
+    ref = hg.cell_encode_torch(t2, p2, layout)
+    ref.backward(grad)
+    torch.testing.assert_close(out, ref, atol=FWD_ATOL, rtol=0)
+    assert _rel(t_.grad, t2.grad) <= BWD_RTOL and _rel(p_.grad, p2.grad) <= BWD_RTOL

@@ -116,7 +116,7 @@ def _jax_grads(opt_state, grid):
         return np.asarray(a) / np.float32(0.1)
 
     g = jax.tree.map(pick, *adam, is_leaf=lambda x: isinstance(x, optax.MaskedNode))
-    g["model"]["field"]["grid_table"] = bridge.grid_table_from_jax(
+    g["model"]["field"]["grid_table"] = bridge.table_from_jax(
         g["model"]["field"]["grid_table"], grid)
     return g
 
@@ -249,6 +249,21 @@ def test_learning_rates_match_optax(group):
             err_msg=str(step))
 
 
+@pytest.mark.parametrize("warmup", [0, 30], ids=["no_warmup", "warmup"])
+def test_learning_rate_decays_over_max_steps(warmup):
+    """An optimizer group's ``max_steps`` replaces the run's ``max_iters``
+    as the decay horizon, as ``_make_group_tx`` builds it."""
+    opt = configs.OptimizerConfig(lr_init=1e-2, lr_final=1e-4, max_steps=100,
+                                  warmup_steps=warmup)
+    sched = optax.exponential_decay(opt.lr_init, opt.max_steps, opt.lr_final / opt.lr_init)
+    if warmup:
+        sched = optax.join_schedules([optax.constant_schedule(0.0), sched], [warmup])
+    for step in (0, 50, 99, 100, 400):
+        np.testing.assert_allclose(
+            trainer.learning_rate(opt, step, 1000), float(sched(step)), rtol=1e-6,
+            err_msg=str(step))
+
+
 def test_render_camera_matches_jax(setup):
     """Eval render of a 24x24 camera in chunks of 100 rays (the last chunk
     ragged), mean appearance embedding, on the same parameters."""
@@ -266,8 +281,10 @@ def test_render_camera_matches_jax(setup):
 
 
 def test_port_trains_without_jax():
-    """Import every module of the port and take a small train step and a
-    render in a fresh interpreter: jax, flax and optax stay unimported."""
+    """Import every module of the port and take a small train step, a
+    render and a two-step corner-mode train_loop with a writer, an eval and
+    a checkpoint in a fresh interpreter: jax, flax and optax stay
+    unimported."""
     code = textwrap.dedent("""
         import dataclasses, importlib, pkgutil, sys
         import torch
@@ -293,6 +310,20 @@ def test_port_trains_without_jax():
         metrics = train_step(state, data, cfg, torch.Generator().manual_seed(0))
         assert torch.isfinite(metrics["total_loss"]), metrics
         assert render_camera(state.params, data.cameras, 0, cfg)["rgb"].shape == (16, 16, 3)
+        # the corner-mode grid through train_loop, with a writer and checkpoints
+        import tempfile
+        from fruitnerf_tpu.utils.writer import MetricWriter
+        from fruitnerf_tpu_torch.engine.trainer import train_loop
+        grid = dataclasses.replace(cfg.model.field.grid, mode="corner")
+        cfg = dataclasses.replace(cfg, max_iters=2, steps_per_eval=2, steps_per_save=2,
+                                  model=dataclasses.replace(cfg.model, field=dataclasses.replace(
+                                      cfg.model.field, grid=grid)))
+        with tempfile.TemporaryDirectory() as d:
+            writer = MetricWriter(d + "/metrics.jsonl", also_print=False)
+            state = train_loop(cfg, data, eval_indices=[3], writer=writer,
+                               checkpoint_dir=d + "/ckpt")
+            writer.close()
+        assert state.step == 2
         bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
         print("FORBIDDEN", bad)
         assert not bad
