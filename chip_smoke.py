@@ -3,7 +3,8 @@
 this checkout, hold each against its plain PyTorch version, train the
 full-width ``fruit_nerf`` grid preset (cell mode, by hand) and its corner-mode
 grid (through ``train_loop``, with evals and checkpoints) for a few hundred
-steps each on a synthetic scene, and resume and render.
+steps each on a synthetic scene, and resume and render; then run the
+fruit-counting main path, ``orchard-e2e``, on the bench orchard.
 
     python3 chip_smoke.py [--steps 400] [--seed 0]
 
@@ -19,7 +20,9 @@ Phases, each printing its lines:
            K5/K6 (cell v1, the cell kernels at a uniform 16-level T = 8192
            layout) through grid_encode_flat(mode="cell") and its autograd,
            after one counted forward and backward through that entry (cell
-           v1's only path: no training path reaches it)
+           v1's only path: no training path reaches it); then K1 alone at an
+           export batch (2^22 probes, placed as the orchard export places
+           them, the box's faces zeroed by the AABB selector)
   parity   one small train step's losses and colour-MLP gradient on the GPU
            (kernels) against the CPU (plain version), same parameters and draws
   slice    the cell-mode training steps: finite losses, PSNR rising, every
@@ -31,13 +34,28 @@ Phases, each printing its lines:
            each step; the cell slice does not). Then the manifest, whose grid entry
            must rebuild the layout, and a resume into a fresh state that must
            equal the trained one and render the held-out camera identically
-Then one JSON line of the six kernels, the card line, and as the last line
+  orchard  scripts.orchard_e2e.main on the bench orchard (120 fruits, 200
+           cameras at 256^2, rendered once, into the scene cache it reads,
+           by the torch renderer above the numpy tracer's 2M ray-sphere
+           pairs; camera 0's mask held to the numpy tracer's),
+           ORCHARD_ITERS full-width steps, sparsity 0.005, an export at
+           N = EXPORT_N and the counting cascade (the native counting
+           library must load). Checks that the reports name the card, K1/K2
+           launches in training (>= 2 and >= 1 a step) and K1's in export
+           (one a batch), a non-empty density cloud, finite eval stats; then
+           a second call on the same directory, which must resume at the
+           final step, run zero steps, report null rates and export the
+           same clouds
+Then one JSON line of the six kernels (K1/K2's launches summed over the cell
+slice and the orchard phase's counted calls; K1's entry also carries its
+export-batch error and times), the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; with
 no CUDA device it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -55,6 +73,8 @@ BWD_RTOL = 1e-4  # backward kernels: relative to each gradient's max; atomics re
 LOSS_RTOL = 1e-4  # small-input step, GPU against CPU, float32
 GRAD_RTOL = 1e-3  # its gradients, relative to each one's max magnitude
 P_SLICE = 4096 * 48 + 4096  # fine samples plus sparsity points of one step
+ORCHARD_ITERS = 2000  # the orchard phase's steps: a few minutes on the card
+EXPORT_N = 256  # its export's probe grid side: 2^24 probes in 4 batches
 
 
 class SmokeFailure(RuntimeError):
@@ -202,14 +222,51 @@ def kernel_phase(hg, cell_layout, corner_grid, dev, seed: int) -> list[dict]:
         f"K5/K6 cell v1 ({len(res)} levels, T={t_v1}, direct {sum(v1.direct)})",
         flat, None, lambda t, p: hg.cell_encode_torch(t, p, v1), table, pos, grad,
     )
+    k1_export = export_k1(hg, cell_layout, dev, g)
     cell_fns = ("cell_encode_fwd_kernel", "cell_encode_bwd_kernel")
-    return (
+    entries = (
         _entries(k12, ("cell_encode_fwd", "cell_encode_bwd"), CELL_SRC, cell_fns, (523, 581))
         + _entries(k34, ("corner_encode_fwd", "corner_encode_bwd"), CORNER_SRC,
                    ("corner_encode_fwd_kernel", "corner_encode_bwd_kernel"), (163, 203))
         + _entries(k56, ("cell_v1_encode_fwd", "cell_v1_encode_bwd"), CELL_SRC, cell_fns,
                    (865, 903), (v1_counts["cell_encode_fwd"], v1_counts["cell_encode_bwd"]))
     )
+    k1 = entries[0]
+    k1["max_abs_err"] = max(k1["max_abs_err"], k1_export["export_max_abs_err"])
+    k1.update(k1_export)
+    return entries
+
+
+def export_k1(hg, layout, dev, g) -> dict:
+    """K1 alone at the export's batch: the first batch of the orchard
+    phase's export (MAX_PROBES probes at N = EXPORT_N), placed as
+    ``sample_volume`` places them, against the plain version. The AABB
+    selector zeroes every probe on or outside the box's faces, so the batch
+    holds exact zeros beside values just inside the faces."""
+    from fruitnerf_tpu_torch.core.math import normalize_aabb_to_unit
+    from fruitnerf_tpu_torch.core.samplers import spaced_samples
+    from fruitnerf_tpu_torch.export import volume_sampler as vs
+
+    ec = vs.ExportConfig(num_points_per_side=EXPORT_N)
+    origins, direction, far = vs.orthographic_ray_grid(ec.aabb, EXPORT_N)
+    bundle = vs.probe_bundle(torch.from_numpy(origins[: vs.rays_per_batch(ec)]).to(dev),
+                             torch.from_numpy(direction).to(dev), far)
+    probes = spaced_samples(bundle, EXPORT_N, spacing="uniform", train=False).positions()
+    pos, inside = normalize_aabb_to_unit(probes.reshape(-1, 3), torch.as_tensor(ec.aabb, device=dev))
+    check(pos.shape[0] == vs.MAX_PROBES, f"an export batch of {pos.shape[0]} probes")
+    table = torch.rand((layout.total_rows, 16), generator=g, device=dev) * 2.0 - 1.0
+    err = (hg.cell_encode_fwd_cuda(table, pos, layout)
+           - hg.cell_encode_torch(table, pos, layout)).abs().max().item()
+    kept = pos[inside]
+    print(f"kernels: K1 at an export batch, P={pos.shape[0]} ({int((~inside).sum())} probes on "
+          f"or outside the box zeroed; the others in [{kept.min().item():.6f}, "
+          f"{kept.max().item():.6f}]): forward max abs err {err:.3e} (tol {FWD_ATOL:g})")
+    check(err <= FWD_ATOL, f"K1 at an export batch: forward error {err} > {FWD_ATOL}")
+    ms = median_ms(lambda: hg.cell_encode_fwd_cuda(table, pos, layout), iters=10)
+    plain_ms = median_ms(lambda: hg.cell_encode_torch(table, pos, layout), iters=10)
+    print(f"kernels: K1 at an export batch {ms:.4f} ms, plain {plain_ms:.4f} ms (median)")
+    return {"export_probes": pos.shape[0], "export_max_abs_err": err,
+            "export_ms": ms, "export_plain_ms": plain_ms}
 
 
 def flat_path_launches(hg, flat, table, pos, grad) -> dict:
@@ -382,11 +439,11 @@ def corner_slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
     """``train_loop`` on the corner-mode config: log every step, eval and
     checkpoint every 100 steps; then the manifest, and a resume into a
     fresh state that must equal the trained one."""
-    from fruitnerf_tpu.utils.writer import MetricWriter
     from fruitnerf_tpu_torch.bridge import tree_leaves
     from fruitnerf_tpu_torch.data.builder import dataset_from_scene
     from fruitnerf_tpu_torch.engine import checkpoints as ck
     from fruitnerf_tpu_torch.engine.trainer import init_train_state, render_camera, train_loop
+    from fruitnerf_tpu_torch.utils.writer import MetricWriter
 
     n = scene["images"].shape[0]
     data = dataset_from_scene(scene, dev)
@@ -448,9 +505,8 @@ def corner_slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
         ck.write_manifest(run, cfg.preset, np.eye(4)[:3], 1.0, np.array([[-1.0] * 3, [1.0] * 3]),
                           n, grid, extra={"config_overrides": {"sparsity_loss": 0.005}})
         manifest = ck.read_manifest(run)
-        rebuilt = ck.grid_from_manifest(manifest)  # raises if it rebuilds another layout
-        check(rebuilt.table_layout() == grid.table_layout()
-              and rebuilt.table_shape == grid.table_shape, "the manifest rebuilt another layout")
+        # raises if the rebuilt layout differs from the recorded one or from grid's
+        rebuilt = ck.grid_from_manifest(manifest, expect=grid)
         rcfg = dataclasses.replace(cfg, model=dataclasses.replace(
             cfg.model, field=dataclasses.replace(cfg.model.field, grid=rebuilt)))
         gen2 = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -469,6 +525,136 @@ def corner_slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
               f"camera {held[0]} render max abs diff {diff:g}")
         check(diff == 0.0, "the restored state renders differently")
     return counts
+
+
+@contextlib.contextmanager
+def counted_calls(module, attr: str, hg, sink: dict):
+    """Wrap ``module.attr`` for the block: each call starts with every
+    launch count at 0 and appends the counts after it to ``sink[attr]``."""
+    real = getattr(module, attr)
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        hg.reset_launch_counts()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            sink.setdefault(attr, []).append(dict(hg.LAUNCHES))
+
+    setattr(module, attr, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+ORCHARD = dict(num_fruits=120, num_cameras=200, image_size=256, seed=7)  # bench.py's orchard
+
+
+def orchard_phase(dev, iters: int, export_n: int, hg, name: str):
+    """The fruit-counting main path through its entry point,
+    ``scripts.orchard_e2e.main``, on the bench orchard at full width; then a
+    second call on the same directory, which resumes at the final step.
+    Returns the K1/K2 launches summed over the counted calls of both."""
+    from fruitnerf_tpu_torch.data import synthetic
+    from fruitnerf_tpu_torch.engine import trainer
+    from fruitnerf_tpu_torch.export import volume_sampler as vs
+    from fruitnerf_tpu_torch.scripts import count, orchard_e2e
+
+    lib = count.native_library()
+    check(lib is not None,
+          "the native counting library did not build or load (g++ needed); large clouds "
+          "would reach the JAX-only device DBSCAN")
+    print(f"orchard: native counting library {lib.name} loaded")
+
+    cfg_scene = synthetic.orchard_config(**ORCHARD)
+    pairs = synthetic.ray_sphere_pairs(cfg_scene)
+    check(pairs > synthetic.NUMPY_MAX_PAIRS, f"{pairs} ray-sphere pairs take the numpy tracer")
+    # render afresh, through the torch renderer, into the cache orchard_e2e.main reads
+    cache = synthetic.scene_cache_path(cfg_scene)
+    cache.unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = synthetic.cached_render_scene(cfg_scene, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(cache.exists(), f"the scene was not cached at {cache}")
+    mask_np = synthetic.numpy_fruit_mask(cfg_scene, scene["poses"][0])
+    flips = float(np.mean(mask_np != (scene["masks"][0] > 0.5)))
+    print(f"orchard: scene {cfg_scene.num_fruits} fruits + {cfg_scene.num_leaves} leaves, "
+          f"{len(scene['poses'])} cameras at {cfg_scene.image_size}^2 ({pairs} ray-sphere pairs "
+          f"a camera) rendered by the torch renderer and cached in {dt:.3f} s; camera 0's fruit "
+          f"mask differs from the numpy tracer's on {flips:.2e} of its pixels (tol 2e-3)")
+    check(flips <= 2e-3, f"the torch renderer's mask differs on {flips} of camera 0")
+
+    parser = argparse.ArgumentParser()
+    orchard_e2e.add_args(parser)
+    with tempfile.TemporaryDirectory() as run_dir:
+        args = parser.parse_args([
+            "--num-fruits", str(ORCHARD["num_fruits"]), "--num-cameras", str(ORCHARD["num_cameras"]),
+            "--image-size", str(ORCHARD["image_size"]), "--seed", str(ORCHARD["seed"]),
+            "--iters", str(iters), "--sparsity-loss", "0.005", "--export-n", str(export_n),
+            "--output-dir", run_dir,
+        ])
+        reports, counts = [], {}
+        for call in range(2):
+            with counted_calls(trainer, "train_loop", hg, counts), \
+                    counted_calls(vs, "sample_volume", hg, counts):
+                reports.append(orchard_e2e.main(args))
+        first, second = reports
+    batches = math.ceil(export_n**2 / vs.rays_per_batch(vs.ExportConfig(num_points_per_side=export_n)))
+
+    steps = first["steps_run"]
+    rays = first["train_rays_per_sec_train_only"]
+    check(first["device"] == second["device"] == name,
+          f"the reports name {first['device']!r} and {second['device']!r}, not {name!r}")
+    print(f"orchard: reports taken on {first['device']}; scene {first['render_scene_s']:.3f} s "
+          f"in orchard_e2e.main (its cache); "
+          f"train {steps} steps: {rays / 4096:.3f} steps/s = {rays:.1f} rays/s over train_s "
+          f"{first['loop_timings']['train_s']:.3f} s (overall {first['train_rays_per_sec']:.1f} "
+          f"rays/s over {first['train_s']:.3f} s with evals and saves) on {name}")
+    check(steps == iters, f"ran {steps} steps of {iters}")
+    ev = first["eval"]
+    print(f"orchard: eval over the held-out cameras: PSNR {ev['psnr']:.3f} dB, SSIM "
+          f"{ev['ssim']:.4f}, IoU {ev['iou']:.4f}, {ev['num_rays_per_sec']:.1f} rays/s "
+          f"({first['eval_s']:.3f} s)")
+    check(all(math.isfinite(v) for v in ev.values()), f"eval stats not finite: {ev}")
+    check(-1.0 <= ev["ssim"] <= 1.0, f"SSIM out of [-1, 1]: {ev['ssim']}")
+    train_counts, export_counts = counts["train_loop"][0], counts["sample_volume"][0]
+    print(f"orchard: launches in train_loop ({steps} steps, evals every 500): {train_counts}")
+    check(train_counts["cell_encode_fwd"] >= 2 * steps, "a train step skipped K1")
+    check(train_counts["cell_encode_bwd"] >= steps, "a train step skipped K2")
+    pts = first["export_points"]
+    print(f"orchard: export N={export_n} ({export_n**3} probes, {batches} batches) in "
+          f"{first['export_s']:.3f} s = {first['export_probes_per_sec']:.1f} probes/s; points "
+          f"{pts}; launches {export_counts}")
+    check(export_counts["cell_encode_fwd"] == batches,
+          f"export launched K1 {export_counts['cell_encode_fwd']} times for {batches} batches")
+    check(export_counts["cell_encode_bwd"] == 0, "export launched K2")
+    check(pts["density"] > 0, "the density cloud is empty")
+    for cloud, c in first["counting"].items():
+        if "error" in c:
+            print(f"orchard: count on {cloud}: {c['error']}")
+            check(pts[cloud] == 0, f"{cloud} has points but no count")
+        else:
+            print(f"orchard: count on {cloud}: {c['count']}/{first['gt_count']} "
+                  f"({c['count_error_pct']:.2f}% error), F1 {c['F1']:.4f}, precision "
+                  f"{c['precision']:.4f}, recall {c['recall']:.4f}")
+            check(c["count"] >= 0 and 0.0 <= c["F1"] <= 1.0, f"count on {cloud}: {c}")
+    print(f"orchard: count_s {first['count_s']:.3f} s")
+
+    print(f"orchard: second call resumed at step {second.get('resumed_from_step')}, ran "
+          f"{second['steps_run']} steps; train_rays_per_sec {second['train_rays_per_sec']}; "
+          f"export points {second['export_points']}")
+    check(second.get("resumed_from_step") == iters and second["steps_run"] == 0,
+          "the second call did not resume at the final step")
+    check(second["train_rays_per_sec"] is None and second["train_rays_per_sec_train_only"] is None,
+          "a zero-step run reported a rate")
+    check(second["export_points"] == pts, "the resumed run exported other clouds")
+    check(counts["sample_volume"][1]["cell_encode_fwd"] == batches, "the second export's K1 count")
+    runs = counts["train_loop"] + counts["sample_volume"]
+    return {k: sum(c[k] for c in runs) for k in ("cell_encode_fwd", "cell_encode_bwd")}
 
 
 def main(argv=None) -> int:
@@ -506,11 +692,12 @@ def main(argv=None) -> int:
     parity_phase(scene, dev, args.seed)
     cell_counts = slice_phase(scene, dev, args.steps, args.seed, hg, name)
     corner_counts = corner_slice_phase(scene, dev, args.steps, args.seed, hg, name)
+    orchard_counts = orchard_phase(dev, ORCHARD_ITERS, EXPORT_N, hg, name)
     for k in kernels:  # K5/K6's launches were counted on their own path, in the kernel phase
         if k["name"].startswith("corner_encode"):
             k["launches"] = corner_counts[k["name"]]
         elif k["name"].startswith("cell_encode"):
-            k["launches"] = cell_counts[k["name"]]
+            k["launches"] = cell_counts[k["name"]] + orchard_counts[k["name"]]
     check("jax" not in sys.modules, "the port imported jax")
 
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,38 @@
+"""The port's CLI: python -m fruitnerf_tpu_torch <command> ...
+
+Commands, each the twin of the JAX package's command of the same name:
+  train         train on the built-in synthetic scene
+  export        semantic point clouds of a trained run
+  count         count the fruit of an exported cloud
+  orchard-e2e   synthetic orchard: train -> export -> count -> GT metrics
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .scripts import count as count_cmd
+from .scripts import export as export_cmd
+from .scripts import orchard_e2e as orchard_cmd
+from .scripts import train as train_cmd
+
+COMMANDS = {
+    "train": train_cmd,
+    "export": export_cmd,
+    "count": count_cmd,
+    "orchard-e2e": orchard_cmd,
+}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="fruitnerf_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+    for name, mod in COMMANDS.items():
+        p = sub.add_parser(name, help=(mod.__doc__ or "").strip().splitlines()[0])
+        mod.add_args(p)
+    args = parser.parse_args(argv)
+    COMMANDS[args.command].main(args)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

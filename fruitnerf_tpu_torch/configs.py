@@ -62,6 +62,8 @@ class TrainConfig:
     use_camera_opt: bool = True
     # rays sweep their pixel's footprint instead of its centre line
     train_subpixel_jitter: bool = True
+    # share of a capture's images trained on; the rest are held out
+    train_split_fraction: float = 0.9
     seed: int = 42
 
 
@@ -73,7 +75,8 @@ def fruit_nerf(
     4 finest) and the frequency-MLP proposals."""
     if variant != "grid":
         raise NotImplementedError(
-            f"fruit_nerf variant {variant!r}: only 'grid' is ported"
+            f"fruit_nerf variant {variant!r}: only 'grid' is ported "
+            "(the other variants are ROADMAP Queue 1 item 12)"
         )
     field = FruitFieldConfig(
         num_images=num_images,
@@ -96,6 +99,19 @@ def fruit_nerf(
         train_rays_per_batch=4096,
         proposal_opt=TPU_MLP_OPT,
     )
+
+
+def get_preset(name: str, num_images: int, variant: str = "grid") -> TrainConfig:
+    """A preset by name, as the JAX package's ``get_preset``. Only
+    ``fruit_nerf``'s ``grid`` variant is ported; the JAX package's other
+    presets (``fruit_nerf_big``, ``_huge``, ``_smoke``) and variants raise
+    NotImplementedError."""
+    if name != "fruit_nerf":
+        raise NotImplementedError(
+            f"preset {name!r}: only 'fruit_nerf' is ported "
+            "(the other presets are ROADMAP Queue 1 item 12)"
+        )
+    return fruit_nerf(num_images, variant=variant)
 
 
 # Flat override keys, as recorded in a run's manifest (the JAX twin's

@@ -46,6 +46,19 @@ def contract_to_unit(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return pos, selector
 
 
+def normalize_aabb_to_unit(
+    x: torch.Tensor, aabb: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """World positions -> ([0,1]^3 grid positions, selector) by an AABB
+    ([2, 3]: min and max rows), the export path's input map. As in
+    ``contract_to_unit``, positions outside the open unit cube (a probe on
+    the box's face included) are zeroed and get a False selector."""
+    pos = (x - aabb[0]) / (aabb[1] - aabb[0])
+    selector = torch.all((pos > 0.0) & (pos < 1.0), dim=-1)
+    pos = pos * selector[..., None]
+    return pos, selector
+
+
 def batched_searchsorted(
     a: torch.Tensor, v: torch.Tensor, side: str = "right"
 ) -> torch.Tensor:

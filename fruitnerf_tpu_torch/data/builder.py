@@ -2,17 +2,14 @@
 ``fruitnerf_tpu/data/builder.py`` (``dataset_from_scene``; the on-disk
 ``dataset_from_parsed`` is still to port).
 
-Scenes come from the JAX package's numpy-only procedural generator,
-``fruitnerf_tpu.data.synthetic`` (re-exported here). It imports no JAX as
-long as ``H * W * spheres <= 2,000,000``; above that ``render_scene`` traces
-on a JAX device, which the port's machines do not have.
+Scenes come from ``data/synthetic.py`` (re-exported here).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from fruitnerf_tpu.data.synthetic import SyntheticSceneConfig, render_scene  # noqa: F401
+from .synthetic import SyntheticSceneConfig, cached_render_scene, render_scene  # noqa: F401
 
 from ..cameras.cameras import Cameras
 from ..engine.trainer import DeviceDataset, build_device_dataset

@@ -186,25 +186,27 @@ def grid_layout(grid: GridEncodingConfig) -> dict:
     }
 
 
-def grid_from_manifest(manifest: dict) -> GridEncodingConfig:
-    """Rebuild the grid config a manifest records; raises ValueError (as
-    ``check_grid``) when the rebuilt layout differs from the recorded one."""
+def grid_from_manifest(
+    manifest: dict, expect: GridEncodingConfig | None = None
+) -> GridEncodingConfig:
+    """Rebuild the grid config a manifest records. Raises ValueError naming
+    the fields that differ when the rebuilt layout differs from the recorded
+    one, or when ``expect`` (the config about to restore the run) has
+    another layout."""
+    recorded = manifest.get("grid")
+    if recorded is None:
+        raise ValueError("the manifest has no grid entry (the JAX package's manifests lack it)")
     names = {f.name for f in dataclasses.fields(GridEncodingConfig)}
-    grid = GridEncodingConfig(**{k: v for k, v in manifest["grid"].items() if k in names})
-    check_grid(manifest, grid)
+    grid = GridEncodingConfig(**{k: v for k, v in recorded.items() if k in names})
+    for other in (grid,) if expect is None else (grid, expect):
+        want = grid_layout(other)
+        differ = sorted(k for k in want if recorded.get(k) != want[k])
+        if differ:
+            raise ValueError(
+                "the run's grid layout does not match this config: "
+                + ", ".join(f"{k} {recorded.get(k)!r} vs {want[k]!r}" for k in differ[:6])
+            )
     return grid
-
-
-def check_grid(manifest: dict, grid: GridEncodingConfig) -> None:
-    """Refuse to restore a run whose recorded grid layout differs from
-    ``grid``'s: raises ValueError naming the fields that differ."""
-    want = grid_layout(grid)
-    differ = sorted(k for k in want if manifest["grid"].get(k) != want[k])
-    if differ:
-        raise ValueError(
-            "the run's grid layout does not match this config: "
-            + ", ".join(f"{k} {manifest['grid'].get(k)!r} vs {want[k]!r}" for k in differ[:6])
-        )
 
 
 def write_manifest(

@@ -334,7 +334,7 @@ def train_loop(
     ``config.max_iters``, one ``train_step`` at a time.
 
     * Every ``steps_per_log`` steps the step's metrics go to ``writer``
-      (``fruitnerf_tpu.utils.writer.MetricWriter``).
+      (``fruitnerf_tpu_torch.utils.writer.MetricWriter``).
     * Every ``steps_per_eval`` steps one camera of ``eval_indices`` is
       evaluated, rotating through them; its stats go to ``writer`` as
       ``eval_*``.

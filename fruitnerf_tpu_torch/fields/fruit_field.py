@@ -15,7 +15,7 @@ import dataclasses
 
 import torch
 
-from ..core.math import contract_to_unit, trunc_exp
+from ..core.math import contract_to_unit, normalize_aabb_to_unit, trunc_exp
 from .encodings import GridEncodingConfig, grid_encode, init_grid_table, sh_encode
 from .mlp import MLPConfig, apply_mlp, init_mlp
 
@@ -93,10 +93,21 @@ def init_fruit_field(
 
 
 def get_density(
-    params: dict, positions: torch.Tensor, config: FruitFieldConfig
+    params: dict,
+    positions: torch.Tensor,
+    config: FruitFieldConfig,
+    contraction: bool = True,
+    aabb: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """World positions [..., 3] -> (density [...], geo features [..., G])."""
-    pos01, selector = contract_to_unit(positions)
+    """World positions [..., 3] -> (density [...], geo features [..., G]).
+    ``contraction=False`` normalizes by ``aabb`` ([2, 3]) instead: the
+    export path's input map."""
+    if contraction:
+        pos01, selector = contract_to_unit(positions)
+    else:
+        if aabb is None:
+            raise ValueError("get_density(contraction=False) needs an aabb")
+        pos01, selector = normalize_aabb_to_unit(positions, aabb)
     h = grid_encode(params["grid_table"], pos01, config.grid)
     out = apply_mlp(params["base_mlp"], h, config.base_mlp, config.compute_dtype)
     density = trunc_exp(out[..., 0] + config.density_bias) * selector
@@ -119,9 +130,11 @@ def fruit_field_forward(
     camera_indices: torch.Tensor,  # [R]
     config: FruitFieldConfig,
     train: bool,
+    contraction: bool = True,
+    aabb: torch.Tensor | None = None,
 ) -> dict[str, torch.Tensor]:
     """Full field pass -> density [R,S], rgb [R,S,3], semantics [R,S,C]."""
-    density, geo = get_density(params, positions, config)
+    density, geo = get_density(params, positions, config, contraction, aabb)
     r, s = positions.shape[0], positions.shape[1]
     sh = sh_encode(directions, config.sh_levels)[:, None, :].expand(r, s, -1)
     app = get_appearance(params, camera_indices, train)[:, None, :].expand(r, s, -1)

@@ -1,6 +1,6 @@
-"""FruitModel: nerfacto-style semantic NeRF, train and eval forward. Twin of
-``fruitnerf_tpu/models/fruit_model.py`` (the inference and export forwards
-are still to port).
+"""FruitModel: nerfacto-style semantic NeRF, its train/eval forward and its
+export forward. Twin of ``fruitnerf_tpu/models/fruit_model.py`` (the
+inference forward is still to port).
 
 Proposal annealing and the proposal-update cadence are functions of the
 step, which the trainer keeps on the host.
@@ -21,7 +21,7 @@ from ..core.render import (
     render_semantics,
     semantic_colormap,
 )
-from ..core.samplers import proposal_sample
+from ..core.samplers import proposal_sample, spaced_samples
 from ..fields.freq_density_field import (
     FreqDensityFieldConfig,
     freq_density_field_forward,
@@ -147,6 +147,33 @@ def forward_train(
         "semantics_colormap": semantic_colormap(sem, config.colormap_threshold),
         "weights_list": weights_list,
         "sdist_list": [rs.spacing_bins() for rs in rs_list],
+    }
+
+
+def forward_export(
+    params: dict,
+    bundle: RayBundle,
+    config: FruitModelConfig,
+    num_samples: int,
+    aabb: torch.Tensor,
+) -> dict[str, torch.Tensor]:
+    """Export forward: ``num_samples`` uniform deterministic samples a ray
+    between the bundle's own near and far, the field with AABB
+    normalization instead of the contraction and the mean appearance
+    embedding, and raw per-sample outputs with no compositing."""
+    samples = spaced_samples(bundle, num_samples, spacing="uniform", train=False)
+    positions = samples.positions()
+    field_out = fruit_field_forward(
+        params["field"], positions, bundle.directions, bundle.camera_indices,
+        config.field, train=False, contraction=False, aabb=aabb,
+    )
+    logit = field_out["semantics"][..., 0]
+    return {
+        "positions": positions,  # [R, S, 3]
+        "rgb": field_out["rgb"],  # [R, S, 3]
+        "semantics": logit,  # raw logits [R, S]
+        "semantics_prob": torch.sigmoid(logit),
+        "density": field_out["density"],  # [R, S]
     }
 
 

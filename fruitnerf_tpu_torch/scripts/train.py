@@ -1,0 +1,83 @@
+"""Training CLI on the built-in synthetic scene. Twin of
+``fruitnerf_tpu/scripts/train.py`` for ``--data synthetic``.
+
+    python -m fruitnerf_tpu_torch train --data synthetic --output-dir runs/my_run
+
+The run directory receives ``manifest.json`` (what ``export`` reads),
+``checkpoints/`` and ``metrics.jsonl``. Training on a capture directory
+(``transforms.json``) is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+
+from fruitnerf_tpu.scripts.train import add_args  # noqa: F401  (the CLI is shared)
+
+
+def main(args):
+    import torch
+
+    from ..configs import apply_overrides, get_preset
+    from ..data.builder import dataset_from_scene
+    from ..data.synthetic import SyntheticSceneConfig, render_scene
+    from ..engine.checkpoints import resume_from_latest, write_manifest
+    from ..engine.trainer import evaluate_all, init_train_state, train_loop
+    from ..utils.writer import MetricWriter
+
+    if args.data != "synthetic":
+        raise NotImplementedError(
+            "train --data <capture dir>: the dataset path (data/builder.py:"
+            "dataset_from_parsed) is ROADMAP Queue 1 item 11; use --data synthetic"
+        )
+    if args.lpips_weights is not None:
+        raise NotImplementedError("LPIPS (utils/lpips.py) is ROADMAP Queue 1 item 14")
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    out_dir = Path(args.output_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    scene = render_scene(SyntheticSceneConfig(num_cameras=24, image_size=128), device=dev)
+    num_images = scene["images"].shape[0]
+    config = get_preset(args.preset, num_images=num_images, variant=args.variant)
+    split = (config.train_split_fraction if args.train_split_fraction is None
+             else args.train_split_fraction)
+    data = dataset_from_scene(scene, dev, train_fraction=split)
+    overrides = {
+        k: v for k, v in {
+            "train_rays_per_batch": args.train_rays_per_batch,
+            "sparsity_loss": args.sparsity_loss or None,
+            "distortion_loss": True if args.distortion_loss else None,
+        }.items() if v is not None
+    }
+    config = apply_overrides(config, overrides)
+    config = dataclasses.replace(
+        config, seed=args.seed, max_iters=args.max_iters or config.max_iters
+    )
+    write_manifest(
+        out_dir, preset=config.preset, dataparser_transform=np.eye(4)[:3],
+        dataparser_scale=1.0, scene_aabb=np.array([[-1.0] * 3, [1.0] * 3]),
+        num_images=num_images, grid=config.model.field.grid,
+        extra={"variant": args.variant, "max_iters": config.max_iters,
+               "train_split_fraction": split, "config_overrides": overrides},
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(config.seed)
+    state = None
+    ckpt_dir = out_dir / "checkpoints"
+    if args.resume:  # a restore sets the generator's state too
+        restored, resumed = resume_from_latest(
+            ckpt_dir, init_train_state(config, num_images, dev), gen
+        )
+        print(f"resume: {f'from step {restored.step}' if resumed else 'no checkpoint found'}")
+        state = restored if resumed else None
+    eval_indices = np.array([0])
+    writer = MetricWriter(out_dir / "metrics.jsonl")
+    state = train_loop(config, data, eval_indices=eval_indices, state=state, generator=gen,
+                       writer=writer, checkpoint_dir=ckpt_dir)
+    stats = evaluate_all(state.params, data, eval_indices, config)
+    writer.write(state.step, {f"final_eval_{k}": v for k, v in stats.items()})
+    writer.close()
+    print(f"done: step {state.step}, artifacts in {out_dir}")
+    return state

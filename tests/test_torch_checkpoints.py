@@ -142,10 +142,10 @@ def test_manifest_records_the_grid_layout(tmp_path):
     assert g["rows"] == [256] * 3 and g["caps"] == [256] * 3
     assert g["direct"] == [(r + 1) ** 3 <= 256 for r in g["resolutions"]]
     assert ck.grid_from_manifest(m) == grid
-    ck.check_grid(m, grid)
+    assert ck.grid_from_manifest(m, expect=grid) == grid
     cell = GridEncodingConfig(**CELL)
     with pytest.raises(ValueError, match="mode 'corner' vs 'cell'"):
-        ck.check_grid(m, cell)
+        ck.grid_from_manifest(m, expect=cell)
     tampered = dict(m, grid=dict(g, rows=[128] * 3))
     with pytest.raises(ValueError, match="rows"):
         ck.grid_from_manifest(tampered)
@@ -159,7 +159,38 @@ def test_cell_manifest_records_the_two_tier_caps(tmp_path):
     assert m["grid"]["rows"] == list(grid.cell_layout().rows)
     assert ck.grid_from_manifest(m) == grid
     with pytest.raises(ValueError, match="mid_table_size"):
-        ck.check_grid(m, dataclasses.replace(grid, mid_table_size=None))
+        ck.grid_from_manifest(m, expect=dataclasses.replace(grid, mid_table_size=None))
+
+
+def _tamper(field, value):
+    def fn(manifest):
+        return dict(manifest, grid=dict(manifest["grid"], **{field: value}))
+    return fn
+
+
+@pytest.mark.parametrize("grid, change, expect, match", [
+    # the recorded layout is not what its own fields rebuild
+    (CORNER, _tamper("rows", [128] * 3), None, "rows"),
+    (CELL, _tamper("direct", [False] * 3), None, "direct"),
+    (CELL, _tamper("caps", [256] * 3), None, "caps"),
+    # the config about to restore the run has another layout
+    (CORNER, None, CELL, "mode 'corner' vs 'cell'"),
+    (CELL, None, dict(CELL, table_size=512), "table_size"),
+    (CELL, None, dict(CELL, fine_levels=2), "fine_levels"),
+    (CORNER, None, dict(CORNER, features_per_level=4), "features_per_level"),
+    # a manifest the JAX package wrote, which has no grid entry
+    (CELL, lambda m: {k: v for k, v in m.items() if k != "grid"}, None, "no grid entry"),
+], ids=["rows", "direct", "caps", "mode", "table-size", "fine-levels", "features", "no-grid"])
+def test_grid_from_manifest_refuses_a_mismatch(tmp_path, grid, change, expect, match):
+    """One function rebuilds the layout and refuses a mismatch, against the
+    record itself or against ``expect``."""
+    ck.write_manifest(tmp_path, "fruit_nerf", np.eye(4)[:3], 1.0, np.zeros((2, 3)), N_CAMS,
+                      GridEncodingConfig(**grid))
+    m = ck.read_manifest(tmp_path)
+    if change is not None:
+        m = change(m)
+    with pytest.raises(ValueError, match=match):
+        ck.grid_from_manifest(m, None if expect is None else GridEncodingConfig(**expect))
 
 
 @pytest.mark.parametrize("grid", [CORNER, CELL], ids=["corner", "cell"])

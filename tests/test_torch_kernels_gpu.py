@@ -161,3 +161,72 @@ def test_cell_v1_route_matches_plain(dev):
     ref.backward(grad)
     torch.testing.assert_close(out, ref, atol=FWD_ATOL, rtol=0)
     assert _rel(t_.grad, t2.grad) <= BWD_RTOL and _rel(p_.grad, p2.grad) <= BWD_RTOL
+
+
+EXPORT_FLIP_TOL = 1e-4  # a flipped probe's value lies within this (relative, min 1) of its threshold
+
+
+def _probe_index(points, n):
+    """Output-space points (x2 of world) -> flat probe index (ray * n + sample)."""
+    w = points / 2.0
+    i = ((w[:, 0] + 1.0) / 2.0 * (n - 1)).round().long()
+    j = ((w[:, 1] + 1.0) / 2.0 * (n - 1)).round().long()
+    k = ((w[:, 2] + 1.0) / 2.0 * n).floor().long()
+    return (i * n + j) * n + k
+
+
+def test_sample_volume_on_the_card_matches_the_cpu(dev, tmp_path):
+    """A small export (N = 32 in two batches) on the card, one K1 launch a
+    batch, against the same export on the CPU (the plain version): the same
+    surviving probes up to flips within EXPORT_FLIP_TOL of a threshold, and
+    the same points and colours."""
+    import dataclasses
+
+    import numpy as np
+
+    from fruitnerf_tpu_torch.bridge import tree_map
+    from fruitnerf_tpu_torch.configs import fruit_nerf
+    from fruitnerf_tpu_torch.core.rays import RayBundle
+    from fruitnerf_tpu_torch.export import volume_sampler as vs
+    from fruitnerf_tpu_torch.models.fruit_model import forward_export, init_fruit_model
+
+    n = 32
+    m = fruit_nerf(4, compute_dtype=torch.float32).model
+    model = dataclasses.replace(m, field=dataclasses.replace(m.field, grid=GRID))
+    params = init_fruit_model(model, torch.Generator().manual_seed(0), "cpu")
+    params["field"]["grid_table"] *= 1e4  # O(1) entries: the grid shapes the field
+    origins, direction, far = vs.orthographic_ray_grid(vs.ExportConfig().aabb, n)
+    r = origins.shape[0]
+    bundle = RayBundle(torch.from_numpy(origins), torch.from_numpy(direction).expand(r, 3),
+                       torch.zeros(r), torch.full((r,), far), torch.zeros(r, dtype=torch.int64))
+    with torch.inference_mode():
+        ref = forward_export(params, bundle, model, n, torch.tensor([[-1.0] * 3, [1.0] * 3]))
+    dens, logit, prob = (ref[k].reshape(-1) for k in ("density", "semantics", "semantics_prob"))
+    thr = [float(torch.quantile(v, q)) for v, q in ((logit, 0.3), (dens, 0.4), (prob, 0.5))]
+    cfg = vs.ExportConfig(num_points_per_side=n, num_rays_per_batch=r // 2,
+                          semantic_logit_threshold=thr[0], density_threshold=thr[1],
+                          colormap_prob_threshold=thr[2])
+    before = hg.LAUNCHES["cell_encode_fwd"]
+    gpu = vs.sample_volume(tree_map(params, lambda t: t.to(dev)), model, cfg, 1.0,
+                           tmp_path / "gpu", progress=False)
+    assert hg.LAUNCHES["cell_encode_fwd"] == before + 2
+    cpu = vs.sample_volume(params, model, cfg, 1.0, tmp_path / "cpu", progress=False)
+
+    def near(v, t):
+        return (v - t).abs() <= EXPORT_FLIP_TOL * max(1.0, abs(t))
+
+    near_thr = {"density": near(dens, thr[1]),
+                "semantic": near(dens, thr[1]) | near(logit, thr[0]),
+                "semantic_colormap": near(dens, thr[1]) | near(prob, thr[2])}
+    for name in vs.CLOUDS:
+        g, c = gpu[name], cpu[name]
+        assert 0.1 * n**3 <= len(c["points"]) <= 0.9 * n**3, name
+        ig = _probe_index(torch.from_numpy(g["points"]), n).numpy()
+        ic = _probe_index(torch.from_numpy(c["points"]), n).numpy()
+        flipped = np.setxor1d(ig, ic)
+        assert near_thr[name][torch.from_numpy(flipped)].all(), (name, flipped)
+        assert len(flipped) <= 1e-3 * n**3
+        common = np.intersect1d(ig, ic)
+        rg, rc = np.searchsorted(ig, common), np.searchsorted(ic, common)
+        np.testing.assert_allclose(g["points"][rg], c["points"][rc], atol=1e-6, rtol=0)
+        np.testing.assert_allclose(g["colors"][rg], c["colors"][rc], atol=1e-5, rtol=0)

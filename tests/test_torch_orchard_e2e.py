@@ -1,0 +1,170 @@
+"""The port's CLI (``python -m fruitnerf_tpu_torch``) end to end at toy size,
+each command in a fresh interpreter where importing JAX fails: orchard-e2e
+writes its report, manifest and clouds; a rerun resumes with zero steps and
+null rates; a resume with another camera elevation raises; export on the
+run directory reproduces the clouds; count records the cloud it fell back
+to; train writes a run that export reads. Also ``get_preset``."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from fruitnerf_tpu import native
+from fruitnerf_tpu.export.ply import read_ply, write_ply
+from fruitnerf_tpu_torch import __main__ as port_cli
+from fruitnerf_tpu_torch import configs
+from fruitnerf_tpu_torch.scripts import count
+
+REPO = Path(__file__).resolve().parents[1]
+# Runs ``python -m fruitnerf_tpu_torch <args>`` with JAX, flax and optax unimportable.
+NO_JAX = """
+import runpy, sys
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax"):
+            raise ImportError(f"{name} is blocked: the port runs without JAX")
+sys.meta_path.insert(0, NoJax())
+sys.argv[0] = "fruitnerf_tpu_torch"
+runpy.run_module("fruitnerf_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+TOY = ["--num-fruits", "6", "--num-cameras", "6", "--image-size", "32", "--iters", "20",
+       "--export-n", "32", "--train-rays-per-batch", "256", "--grid-levels", "4",
+       "--table-size", "512", "--mid-table-size", "256", "--fine-levels", "2",
+       # a dense start, so that the density cloud is not empty after 20 steps
+       "--density-bias", "5"]
+# the JAX twin's report keys
+REPORT_KEYS = {"args", "render_scene_s", "fruit_radius", "train_s", "train_rays_per_sec",
+               "loop_timings", "train_rays_per_sec_train_only", "eval", "eval_s", "export_s",
+               "export_probes_per_sec", "export_points", "count_s", "counting", "gt_count"}
+
+
+def cli(*args, check=True) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", NO_JAX, *map(str, args)], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=REPO)
+    if check:
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    return proc
+
+
+def _clouds(d: Path) -> dict:
+    return {n: read_ply(d / f"{n}.ply") for n in ("semantic", "semantic_colormap", "density")}
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory) -> Path:
+    out = tmp_path_factory.mktemp("orchard")
+    cli("orchard-e2e", *TOY, "--output-dir", out)
+    return out
+
+
+def test_orchard_e2e_writes_report_manifest_and_clouds(run):
+    report = json.loads((run / "orchard_report.json").read_text())
+    assert REPORT_KEYS <= set(report)
+    assert report["gt_count"] == 6 and report["steps_run"] == 20
+    # the device the numbers were taken on
+    assert report["device"] == (torch.cuda.get_device_name(0) if torch.cuda.is_available()
+                                else "cpu")
+    assert report["train_rays_per_sec"] > 0 and report["train_rays_per_sec_train_only"] > 0
+    assert set(report["counting"]) == {"semantic_colormap", "semantic"}
+    manifest = json.loads((run / "manifest.json").read_text())
+    assert manifest["variant"] == "grid" and manifest["camera_elevation"] == [0.25, 0.8]
+    assert manifest["config_overrides"]["grid_levels"] == 4
+    assert manifest["grid"]["rows"] == [256, 256, 512, 512]  # res 16, 81, 406, 2048
+    clouds = _clouds(run)
+    assert {n: len(c["points"]) for n, c in clouds.items()} == report["export_points"]
+    assert report["export_points"]["density"] > 0
+
+
+def test_rerun_resumes_with_zero_steps_and_null_rates(run):
+    before = _clouds(run)
+    proc = cli("orchard-e2e", *TOY, "--output-dir", run)
+    assert "resuming from step 20" in proc.stdout
+    report = json.loads((run / "orchard_report.json").read_text())
+    assert report["resumed_from_step"] == 20 and report["steps_run"] == 0
+    assert report["train_rays_per_sec"] is None
+    assert report["train_rays_per_sec_train_only"] is None
+    for name, cloud in _clouds(run).items():
+        np.testing.assert_array_equal(cloud["points"], before[name]["points"], err_msg=name)
+
+
+def test_resume_with_another_camera_elevation_raises(run):
+    proc = cli("orchard-e2e", *TOY, "--camera-elevation", "-0.2", "0.8", "--output-dir", run,
+               check=False)
+    assert proc.returncode != 0
+    assert "ValueError" in proc.stderr and "--camera-elevation" in proc.stderr
+
+
+def test_export_reproduces_the_clouds(run):
+    out = run / "export"
+    proc = cli("export", "--load-dir", run, "--output-dir", out, "--num-points-per-side", 32)
+    assert "loaded step 20" in proc.stdout
+    for name, cloud in _clouds(out).items():
+        np.testing.assert_array_equal(cloud["points"], _clouds(run)[name]["points"], err_msg=name)
+        np.testing.assert_array_equal(cloud["colors"], _clouds(run)[name]["colors"], err_msg=name)
+
+
+def test_count_records_the_cloud_used(tmp_path):
+    """An empty semantic_colormap.ply falls back to semantic.ply (two fruits);
+    the results name the cloud counted."""
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(1000, 3))
+    shell = 0.05 * d / np.linalg.norm(d, axis=-1, keepdims=True)
+    pts = np.concatenate([shell[:500], shell[500:] + [0.4, 0.0, 0.0]]).astype(np.float32)
+    write_ply(tmp_path / "semantic_colormap.ply", np.zeros((0, 3), np.float32))
+    write_ply(tmp_path / "semantic.ply", pts)
+    out = tmp_path / "results.json"
+    proc = cli("count", "--cloud", tmp_path / "semantic_colormap.ply", "--template-size", 1.25,
+               "--eps", 0.02, "--min-samples", 8, "--remove-outliers-nb-points", 20,
+               "--remove-outliers-radius", 0.02, "--down-sample", 0.004,
+               "--cluster-merge-distance", 0.02, "--gt-count", 2, "--output", out)
+    results = json.loads(out.read_text())
+    assert results["cli"]["cloud_used"] == str(tmp_path / "semantic.ply")
+    assert results["cli"]["count"] == 2
+    assert json.loads(proc.stdout[proc.stdout.index("{\n"):]) == results
+
+
+def test_native_library_is_the_counting_cascades():
+    """The port reports the library the shared cascade loads, or None."""
+    assert count.native_library() == (native._SO if native.load() is not None else None)
+
+
+def test_train_cli_writes_a_run_that_export_reads(tmp_path):
+    run = tmp_path / "run"
+    cli("train", "--data", "synthetic", "--output-dir", run, "--max-iters", 2,
+        "--train-rays-per-batch", 64, "--sparsity-loss", 0.005)
+    manifest = json.loads((run / "manifest.json").read_text())
+    assert manifest["config_overrides"] == {"train_rays_per_batch": 64, "sparsity_loss": 0.005}
+    assert manifest["grid"]["caps"] == [4096] * 12 + [8192] * 4
+    assert (run / "checkpoints" / "ckpt_000000002.pt").exists()
+    records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+    assert "final_eval_psnr" in records[-1]
+    cli("export", "--load-dir", run, "--output-dir", tmp_path / "export",
+        "--num-points-per-side", 8)
+    assert all(read_ply(tmp_path / "export" / f"{n}.ply")["points"].shape[1] == 3
+               for n in ("semantic", "semantic_colormap", "density"))
+
+
+@pytest.mark.parametrize("argv, item", [
+    (["train", "--data", "captures/tree01", "--output-dir", "unused"], "item 11"),
+    (["export", "--load-dir", "unused", "--output-dir", "unused", "--mode", "pointcloud"], "item 14"),
+    (["export", "--load-dir", "unused", "--output-dir", "unused", "--mesh"], "item 13"),
+])
+def test_unported_options_raise(argv, item):
+    """What the port leaves out raises before it touches a file, naming the
+    ROADMAP item that ports it."""
+    with pytest.raises(NotImplementedError, match=item):
+        port_cli.main(argv)
+
+
+@pytest.mark.parametrize("name, variant", [("fruit_nerf_big", "grid"), ("fruit_nerf_smoke", "grid"),
+                                           ("fruit_nerf", "tpu"), ("fruit_nerf", "parity")])
+def test_get_preset_serves_only_the_ported_preset(name, variant):
+    assert configs.get_preset("fruit_nerf", 5) == configs.fruit_nerf(5)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        configs.get_preset(name, 5, variant=variant)
