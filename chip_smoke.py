@@ -7,26 +7,35 @@ steps each on a synthetic scene, and resume and render; then run the
 fruit-counting main path, ``orchard-e2e``, on the bench orchard.
 
     python3 chip_smoke.py [--steps 400] [--seed 0]
+    python3 chip_smoke.py --ab-cell-source OTHER/cell_encode.cu [--steps 200]
 
 Phases, each printing its lines:
   card     nvidia-smi's name and power limit; TF32 switched off for matmuls
            and cuDNN
   build    nvcc of fruitnerf_tpu_torch/csrc into fruitnerf_tpu_torch/_build;
            registers of each kernel
-  kernels  at P = 4096*48 + 4096 points, each kernel pair against its plain
-           version: max errors and median times. K1/K2 (cell_encode.cu) at
-           the cell slice's layout; K3/K4 (corner_encode.cu) at the corner
-           slice's (16 levels, T = 8192, F = 2) and at a small F = 4 layout;
-           K5/K6 (cell v1, the cell kernels at a uniform 16-level T = 8192
-           layout) through grid_encode_flat(mode="cell") and its autograd,
-           after one counted forward and backward through that entry (cell
-           v1's only path: no training path reaches it); then K1 alone at an
-           export batch (2^22 probes, placed as the orchard export places
-           them, the box's faces zeroed by the AABB selector)
+  kernels  at P = 4096*48 + 4096 uniform-random points, each kernel pair
+           against its plain version: max errors and median times, each
+           launch's bound (bytes at 3.35 TB/s or float32 operations at 67
+           TFLOP/s, whichever is larger; of the table, the rows the points
+           touch) and the time of the F.embedding_bag yardstick on
+           precomputed corner indices (held to the plain version too). K1/K2
+           (cell_encode.cu) at the cell slice's layout; K3/K4
+           (corner_encode.cu) at the corner slice's (16 levels, T = 8192,
+           F = 2) and at a small F = 4 layout; K5/K6 (cell v1, the cell
+           kernels at a uniform 16-level T = 8192 layout) through
+           grid_encode_flat(mode="cell") and its autograd, after one counted
+           forward and backward through that entry (cell v1's only path: no
+           training path reaches it); then K1 alone at an export batch (2^22
+           probes, placed as the orchard export places them, the box's faces
+           zeroed by the AABB selector)
   parity   one small train step's losses and colour-MLP gradient on the GPU
            (kernels) against the CPU (plain version), same parameters and draws
   slice    the cell-mode training steps: finite losses, PSNR rising, every
-           step through K1 and K2; steps/s and rays/s; a held-out render
+           step through K1 and K2; steps/s and rays/s; a held-out render. The
+           last step's two grid encodings are captured: K1/K2 are then held
+           and timed at those positions (196,608 ray-ordered fine samples and
+           4,096 sparsity points, each its own launch, as the step has them)
   corner   train_loop on the corner-mode grid, logging every step and
            evaluating and checkpointing every 100: finite losses, PSNR
            rising, every step through K3 and K4, finite eval stats with SSIM
@@ -47,10 +56,20 @@ Phases, each printing its lines:
            final step, run zero steps, report null rates and export the
            same clouds
 Then one JSON line of the six kernels (K1/K2's launches summed over the cell
-slice and the orchard phase's counted calls; K1's entry also carries its
-export-batch error and times), the card line, and as the last line
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero; with
-no CUDA device it exits non-zero before printing any result.
+slice and the orchard phase's counted calls; K1's and K2's entries also
+carry their step-layout numbers, K1's its export-batch ones), the card line,
+and as the last line {"ok": true, "device": {...}}. It fails if jax or any
+module of the JAX package (fruitnerf_tpu) was imported. Any failure raises
+and exits non-zero; with no CUDA device it exits non-zero before printing
+any result.
+
+With --ab-cell-source it builds that other cell_encode.cu (the same C
+interface; for example the parent commit's, from git show) apart, runs only
+the card, build and cell slice phases, and times the other K1/K2 ("old")
+against this checkout's ("new") and the plain version in turns (plain, old,
+new, new, old, plain) at random points, at the last step's positions and at
+an export batch, each held to the plain version first; then one JSON line
+of those times and the card line.
 """
 from __future__ import annotations
 
@@ -95,12 +114,23 @@ def card_line() -> str:
 
 
 def median_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+    """Median device time of ``fn`` between CUDA events. Before each run the
+    card is held busy (``torch.cuda._sleep``) for twice the host's time to
+    queue ``fn``, so the events bracket the device's work alone and not the
+    Python and launch overhead in front of a short kernel."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    hold_cycles = int(2e9 * max(2.0 * host_s, 1e-4))  # 2 GHz over-counts the SM clock
     times = []
     for _ in range(iters):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold_cycles)
         s.record()
         fn()
         e.record()
@@ -115,12 +145,127 @@ CELL_SRC = "fruitnerf_tpu_torch/csrc/cell_encode.cu"
 CORNER_SRC = "fruitnerf_tpu_torch/csrc/corner_encode.cu"
 
 
-def hold_pair(label, fwd, bwd, plain, table, pos, grad) -> dict:
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
+# bound of a kernel is the larger of its bytes over the memory rate and its
+# float32 operations over the rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations per (point, level), counted from the kernels' code:
+# s = pos * res, floor, t (9), 1 - t (3), 8 corner weights (16); then
+CELL_FWD_OPS = 28 + 32  # 16 FMAs into the two features
+CELL_BWD_OPS = 28 + 16  # 16 dTable products; dPos adds CELL_DPOS_OPS
+CELL_DPOS_OPS = 24 + 96 + 6  # 8 corner dots (3 each), 8 x 3 axis terms (4 each), scale
+
+
+def corner_fwd_ops(f: int) -> int:
+    return 28 + 16 * f  # 8 corners x F FMAs
+
+
+def corner_bwd_ops(f: int) -> int:
+    return 28 + 8 * f  # 8 corners x F dTable products; dPos adds corner_dpos_ops
+
+
+def corner_dpos_ops(f: int) -> int:
+    return 8 * (2 * f - 1) + 96 + 6
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def lookups(hg, pos, layout, corner: bool):
+    """The rows a launch reads: (flat row index, valid) per (point, level) in
+    cell mode, per (point, level, corner) in corner mode, and the trilinear
+    weights [P, L, 8], as the plain versions compute them."""
+    dev = pos.device
+    res = torch.tensor(layout.resolutions, dtype=torch.float32, device=dev)
+    s = pos[:, None, :] * res[None, :, None]  # [P, L, 3]
+    f0 = torch.floor(s)
+    frac = s - f0
+    bits = torch.tensor((hg._CX, hg._CY, hg._CZ), dtype=torch.int64, device=dev)  # [3, 8]
+    on = bits.bool()
+    tx, ty, tz = (frac[..., a : a + 1] for a in range(3))
+    w8 = (torch.where(on[0], tx, 1.0 - tx) * torch.where(on[1], ty, 1.0 - ty)
+          * torch.where(on[2], tz, 1.0 - tz))  # [P, L, 8]
+    if corner:
+        ix, iy, iz = (f0.long()[..., :, None] + bits).unbind(-2)  # [P, L, 8]
+        stride = torch.tensor(layout.resolutions, dtype=torch.int64, device=dev)[:, None] + 1
+    else:
+        ix, iy, iz = f0.long().unbind(-1)  # [P, L]
+        stride = torch.tensor(layout.resolutions, dtype=torch.int64, device=dev)
+    flat, valid = hg._hash_or_direct(ix, iy, iz, stride, layout)
+    return flat, valid, w8
+
+
+def work(hg, pos, layout, features: int, corner: bool) -> dict:
+    """Bytes and operations of a forward and a backward launch (with dPos)
+    on these positions: each input read once, each output written once, and
+    of the table only the rows these positions touch (the whole dTable is
+    written)."""
+    p, nl = pos.shape[0], layout.num_levels
+    flat, valid, _ = lookups(hg, pos, layout, corner)
+    touched = int(torch.unique(flat[valid]).numel())
+    row_bytes = 4 * (features if corner else 16)
+    out_bytes = 4 * features * nl * p
+    dtable_bytes = row_bytes * layout.total_rows
+    if corner:
+        f_ops, b_ops, d_ops = corner_fwd_ops(features), corner_bwd_ops(features), \
+            corner_dpos_ops(features)
+    else:
+        f_ops, b_ops, d_ops = CELL_FWD_OPS, CELL_BWD_OPS, CELL_DPOS_OPS
+    fwd = bound(12 * p + out_bytes + row_bytes * touched, f_ops * p * nl)
+    bwd = bound(12 * p + out_bytes + dtable_bytes + 12 * p + row_bytes * touched,
+                (b_ops + d_ops) * p * nl)
+    return {"touched_rows": touched, "fwd": fwd, "bwd": bwd}
+
+
+def bag_inputs(hg, pos, layout, corner: bool):
+    """The yardstick's inputs: the [P*L, 8] corner indices into the table
+    viewed as [sum T_l * 8, 2] (cell mode, index row*8 + c) or as [L*T, F]
+    (corner mode), and their trilinear weights, zero where the row is
+    outside its level's table."""
+    p, nl = pos.shape[0], layout.num_levels
+    flat, valid, w8 = lookups(hg, pos, layout, corner)
+    idx = flat if corner else flat[..., None] * 8 + torch.arange(8, device=pos.device)
+    w = w8 * valid.reshape(p, nl, -1)
+    return idx.reshape(p * nl, 8).contiguous(), w.reshape(p * nl, 8).contiguous()
+
+
+def library_pair(hg, table, pos, grad, layout, corner: bool):
+    """The yardstick: one ``F.embedding_bag(mode="sum",
+    per_sample_weights=w)`` call on ``bag_inputs``, made here, outside the
+    timed calls. It leaves out the index math and dPositions. ->
+    (forward(), its autograd dTable backward())."""
+    import torch.nn.functional as F
+
+    p = pos.shape[0]
+    idx, w = bag_inputs(hg, pos, layout, corner)
+    weight = table if corner else table.view(-1, 2)
+    leaf = weight.detach().clone().requires_grad_(True)
+    out_graph = F.embedding_bag(idx, leaf, mode="sum", per_sample_weights=w)
+    g = grad.reshape(out_graph.shape)
+
+    def forward():
+        return F.embedding_bag(idx, weight, mode="sum", per_sample_weights=w).view(p, -1)
+
+    def backward():
+        return torch.autograd.grad(out_graph, leaf, g, retain_graph=True)[0].view(table.shape)
+
+    return forward, backward
+
+
+def hold_pair(label, fwd, bwd, plain, table, pos, grad, library=None, cost=None) -> dict:
     """A forward kernel ``fwd(table, pos)`` and its backward ``bwd(table,
     pos, grad) -> (dTable, dPos)`` against the plain version's forward and
     autograd backward, on the same inputs: errors (checked) and median
     times of each. With ``bwd=None`` the backward is taken through
-    autograd of ``fwd``, as a training step takes it."""
+    autograd of ``fwd``, as a training step takes it. ``library`` is the
+    yardstick's (forward(), backward()) pair, held to the same limits and
+    timed; ``cost`` is ``work``'s bounds of the two launches."""
     if bwd is None:
         t_k = table.clone().requires_grad_(True)
         p_k = pos.clone().requires_grad_(True)
@@ -153,11 +298,40 @@ def hold_pair(label, fwd, bwd, plain, table, pos, grad) -> dict:
         "bwd_ms": median_ms(lambda: bwd(table, pos, grad)),
         "bwd_plain_ms": median_ms(
             lambda: torch.autograd.grad(plain_out, (t_, p_), grad, retain_graph=True)),
+        "fwd_library_ms": None, "bwd_library_ms": None,
     }
-    print(f"kernels: {label} forward {times['fwd_ms']:.4f} ms, plain "
-          f"{times['fwd_plain_ms']:.4f} ms; backward {times['bwd_ms']:.4f} ms, plain "
-          f"{times['bwd_plain_ms']:.4f} ms (median)")
-    return {"fwd_err": fwd_err, "bwd_err": max(dt_err, dp_err), **times}
+    if library is not None:
+        lib_fwd, lib_bwd = library
+        lf_err = (lib_fwd() - out_p).abs().max().item()
+        lb_rel = (lib_bwd() - dt_p).abs().max().item() / dt_p.abs().max().item()
+        print(f"kernels: {label} embedding_bag yardstick forward max abs err {lf_err:.3e}, "
+              f"dTable {lb_rel:.3e} of its max")
+        check(lf_err <= FWD_ATOL and lb_rel <= BWD_RTOL,
+              f"{label}: the embedding_bag yardstick computes another function")
+        times["fwd_library_ms"] = median_ms(lib_fwd)
+        times["bwd_library_ms"] = median_ms(lib_bwd)
+    bounds = {}
+    if cost is not None:
+        for d in ("fwd", "bwd"):
+            bounds[f"{d}_bound_ms"] = cost[d]["bound_ms"]
+            bounds[f"{d}_bound_by"] = cost[d]["bound_by"]
+    def ms(d, what):
+        v = {**times, **bounds}.get(f"{d}_{what}_ms" if what else f"{d}_ms")
+        return "n/a" if v is None else f"{v:.4f} ms"
+
+    print(f"kernels: {label} forward {ms('fwd', '')}, plain {ms('fwd', 'plain')}, "
+          f"embedding_bag {ms('fwd', 'library')}, bound {ms('fwd', 'bound')}; backward "
+          f"{ms('bwd', '')}, plain {ms('bwd', 'plain')}, embedding_bag {ms('bwd', 'library')}, "
+          f"bound {ms('bwd', 'bound')} (medians; rows touched "
+          f"{cost['touched_rows'] if cost else 'n/a'})")
+    return {"fwd_err": fwd_err, "bwd_err": max(dt_err, dp_err), **times, **bounds}
+
+
+def _fields(r: dict, d: str) -> dict:
+    """``hold_pair``'s numbers of one direction ("fwd" or "bwd")."""
+    return {"max_abs_err": r[f"{d}_err"], "ms": r[f"{d}_ms"], "plain_ms": r[f"{d}_plain_ms"],
+            "bound_ms": r[f"{d}_bound_ms"], "bound_by": r[f"{d}_bound_by"],
+            "library_ms": r[f"{d}_library_ms"]}
 
 
 def _entries(r: dict, names, src: str, functions, lines, launches=(0, 0)) -> list[dict]:
@@ -165,17 +339,30 @@ def _entries(r: dict, names, src: str, functions, lines, launches=(0, 0)) -> lis
     training paths are filled in after their runs)."""
     return [
         {"name": name, "route": "cuda", "source": src, "function": fn,
-         "replaces": f"{TPU}:{line}", "launches": n, "max_abs_err": r[f"{d}_err"],
-         "ms": r[f"{d}_ms"], "plain_ms": r[f"{d}_plain_ms"]}
+         "replaces": f"{TPU}:{line}", "launches": n, **_fields(r, d)}
         for d, name, fn, line, n in zip(("fwd", "bwd"), names, functions, lines, launches)
     ]
 
 
-def _inputs(dev, g, rows, width, out_dim):
+def _inputs(dev, g, rows, width, out_dim, p=P_SLICE, pos=None):
     table = torch.rand((rows, width), generator=g, device=dev) * 2.0 - 1.0
-    pos = torch.rand((P_SLICE, 3), generator=g, device=dev) * 0.98 + 0.01
-    grad = torch.randn((P_SLICE, out_dim), generator=g, device=dev)
+    if pos is None:
+        pos = torch.rand((p, 3), generator=g, device=dev) * 0.98 + 0.01
+    grad = torch.randn((pos.shape[0], out_dim), generator=g, device=dev)
     return table, pos, grad
+
+
+def cell_pair(hg, layout, label, table, pos, grad) -> dict:
+    """K1/K2 at ``layout`` on these inputs, with the yardstick and bounds."""
+    return hold_pair(
+        label,
+        lambda t, p: hg.cell_encode_fwd_cuda(t, p, layout),
+        lambda t, p, gr: hg.cell_encode_bwd_cuda(t, p, gr, layout, True),
+        lambda t, p: hg.cell_encode_torch(t, p, layout),
+        table, pos, grad,
+        library=library_pair(hg, table, pos, grad, layout, corner=False),
+        cost=work(hg, pos, layout, 2, corner=False),
+    )
 
 
 def kernel_phase(hg, cell_layout, corner_grid, dev, seed: int) -> list[dict]:
@@ -184,23 +371,24 @@ def kernel_phase(hg, cell_layout, corner_grid, dev, seed: int) -> list[dict]:
     (and once at F = 4), K5/K6 (cell v1, served by the cell kernels at a
     uniform layout) through ``grid_encode_flat(mode="cell")``."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    print(f"kernels: P={P_SLICE}")
+    print(f"kernels: P={P_SLICE} uniform-random points")
 
-    k12 = hold_pair(
+    k12 = cell_pair(
+        hg, cell_layout,
         f"K1/K2 cell v2 ({cell_layout.num_levels} levels, {cell_layout.total_rows} rows)",
-        lambda t, p: hg.cell_encode_fwd_cuda(t, p, cell_layout),
-        lambda t, p, gr: hg.cell_encode_bwd_cuda(t, p, gr, cell_layout, True),
-        lambda t, p: hg.cell_encode_torch(t, p, cell_layout),
         *_inputs(dev, g, cell_layout.total_rows, 16, 2 * cell_layout.num_levels),
     )
 
     def corner(layout, feats, label):
+        table, pos, grad = _inputs(dev, g, layout.total_rows, feats, feats * layout.num_levels)
         return hold_pair(
             label,
             lambda t, p: hg.corner_encode_fwd_cuda(t, p, layout, feats),
             lambda t, p, gr: hg.corner_encode_bwd_cuda(t, p, gr, layout, feats, True),
             lambda t, p: hg.grid_encode_corner_torch(t, p, layout, feats),
-            *_inputs(dev, g, layout.total_rows, feats, feats * layout.num_levels),
+            table, pos, grad,
+            library=library_pair(hg, table, pos, grad, layout, corner=True),
+            cost=work(hg, pos, layout, feats, corner=True),
         )
 
     f = corner_grid.features_per_level
@@ -221,6 +409,8 @@ def kernel_phase(hg, cell_layout, corner_grid, dev, seed: int) -> list[dict]:
     k56 = hold_pair(
         f"K5/K6 cell v1 ({len(res)} levels, T={t_v1}, direct {sum(v1.direct)})",
         flat, None, lambda t, p: hg.cell_encode_torch(t, p, v1), table, pos, grad,
+        library=library_pair(hg, table, pos, grad, v1, corner=False),
+        cost=work(hg, pos, v1, 2, corner=False),
     )
     k1_export = export_k1(hg, cell_layout, dev, g)
     cell_fns = ("cell_encode_fwd_kernel", "cell_encode_bwd_kernel")
@@ -237,12 +427,12 @@ def kernel_phase(hg, cell_layout, corner_grid, dev, seed: int) -> list[dict]:
     return entries
 
 
-def export_k1(hg, layout, dev, g) -> dict:
-    """K1 alone at the export's batch: the first batch of the orchard
-    phase's export (MAX_PROBES probes at N = EXPORT_N), placed as
-    ``sample_volume`` places them, against the plain version. The AABB
-    selector zeroes every probe on or outside the box's faces, so the batch
-    holds exact zeros beside values just inside the faces."""
+def export_batch(dev):
+    """The first batch of the orchard phase's export (MAX_PROBES probes at
+    N = EXPORT_N), placed as ``sample_volume`` places them: -> (positions in
+    the unit cube, inside mask). The AABB selector zeroes every probe on or
+    outside the box's faces, so the batch holds exact zeros beside values
+    just inside the faces."""
     from fruitnerf_tpu_torch.core.math import normalize_aabb_to_unit
     from fruitnerf_tpu_torch.core.samplers import spaced_samples
     from fruitnerf_tpu_torch.export import volume_sampler as vs
@@ -254,19 +444,55 @@ def export_k1(hg, layout, dev, g) -> dict:
     probes = spaced_samples(bundle, EXPORT_N, spacing="uniform", train=False).positions()
     pos, inside = normalize_aabb_to_unit(probes.reshape(-1, 3), torch.as_tensor(ec.aabb, device=dev))
     check(pos.shape[0] == vs.MAX_PROBES, f"an export batch of {pos.shape[0]} probes")
+    return pos.contiguous(), inside
+
+
+def export_k1(hg, layout, dev, g) -> dict:
+    """K1 alone at the export's batch (``export_batch``) against the plain
+    version, with the yardstick and the bound."""
+    import torch.nn.functional as F
+
+    pos, inside = export_batch(dev)
     table = torch.rand((layout.total_rows, 16), generator=g, device=dev) * 2.0 - 1.0
-    err = (hg.cell_encode_fwd_cuda(table, pos, layout)
-           - hg.cell_encode_torch(table, pos, layout)).abs().max().item()
+    ref = hg.cell_encode_torch(table, pos, layout)
+    err = (hg.cell_encode_fwd_cuda(table, pos, layout) - ref).abs().max().item()
     kept = pos[inside]
     print(f"kernels: K1 at an export batch, P={pos.shape[0]} ({int((~inside).sum())} probes on "
           f"or outside the box zeroed; the others in [{kept.min().item():.6f}, "
           f"{kept.max().item():.6f}]): forward max abs err {err:.3e} (tol {FWD_ATOL:g})")
     check(err <= FWD_ATOL, f"K1 at an export batch: forward error {err} > {FWD_ATOL}")
+    cost = work(hg, pos, layout, 2, corner=False)["fwd"]
     ms = median_ms(lambda: hg.cell_encode_fwd_cuda(table, pos, layout), iters=10)
     plain_ms = median_ms(lambda: hg.cell_encode_torch(table, pos, layout), iters=10)
-    print(f"kernels: K1 at an export batch {ms:.4f} ms, plain {plain_ms:.4f} ms (median)")
-    return {"export_probes": pos.shape[0], "export_max_abs_err": err,
-            "export_ms": ms, "export_plain_ms": plain_ms}
+    idx, w = bag_inputs(hg, pos, layout, corner=False)
+
+    def lib_fwd():
+        return F.embedding_bag(idx, table.view(-1, 2), mode="sum", per_sample_weights=w)
+
+    lib_err = (lib_fwd().view(ref.shape) - ref).abs().max().item()
+    check(lib_err <= FWD_ATOL, f"the export-batch yardstick differs by {lib_err}")
+    lib_ms = median_ms(lib_fwd, iters=10)
+    print(f"kernels: K1 at an export batch {ms:.4f} ms, plain {plain_ms:.4f} ms, embedding_bag "
+          f"{lib_ms:.4f} ms (err {lib_err:.3e}), bound {cost['bound_ms']:.4f} ms "
+          f"({cost['bound_by']}) (median)")
+    return {"export_probes": pos.shape[0], "export_max_abs_err": err, "export_ms": ms,
+            "export_plain_ms": plain_ms, "export_bound_ms": cost["bound_ms"],
+            "export_bound_by": cost["bound_by"], "export_library_ms": lib_ms}
+
+
+def step_layout_k12(hg, layout, captured: list, dev, seed: int) -> dict:
+    """K1/K2 at the positions one train step gives them, captured from the
+    cell slice's last step: the fine samples (ray-major, 48 consecutive
+    samples a ray) and the sparsity points, each its own launch, as the
+    step launches them; random table and output gradient."""
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    out = {}
+    for name, pos in zip(("fine", "sparsity"), captured):
+        table, pos, grad = _inputs(dev, g, layout.total_rows, 16, 2 * layout.num_levels, pos=pos)
+        r = cell_pair(hg, layout, f"K1/K2 at the step's {name} points, P={pos.shape[0]}",
+                      table, pos, grad)
+        out[name] = {"points": pos.shape[0], **r}
+    return out
 
 
 def flat_path_launches(hg, flat, table, pos, grad) -> dict:
@@ -355,7 +581,29 @@ def parity_phase(scene, dev, seed: int):
     check(grad_rel <= GRAD_RTOL, f"small-step color_mlp grad differs: {grad_rel}")
 
 
+@contextlib.contextmanager
+def captured_positions(sink: list):
+    """Record a copy of the positions of each grid encoding in the block,
+    as ``fields/encodings.grid_encode`` hands them to ``cell_encode``."""
+    from fruitnerf_tpu_torch.fields import encodings
+
+    real = encodings.cell_encode
+
+    def spy(table, positions, layout):
+        sink.append(positions.detach().clone())
+        return real(table, positions, layout)
+
+    encodings.cell_encode = spy
+    try:
+        yield
+    finally:
+        encodings.cell_encode = real
+
+
 def slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
+    """The cell-mode training steps, by hand. Returns the launch counts and
+    the positions of the last step's two grid encodings (fine samples,
+    sparsity points)."""
     from fruitnerf_tpu_torch.configs import apply_overrides, fruit_nerf
     from fruitnerf_tpu_torch.data.builder import dataset_from_scene
     from fruitnerf_tpu_torch.engine.trainer import init_train_state, render_camera, train_step
@@ -378,7 +626,12 @@ def slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
         if i == warm:
             torch.cuda.synchronize()
             t_warm = time.perf_counter()
-        m = train_step(state, data, cfg, gen)
+        if i == steps - 1:
+            captured = []
+            with captured_positions(captured):
+                m = train_step(state, data, cfg, gen)
+        else:
+            m = train_step(state, data, cfg, gen)
         history.append(torch.stack([m["total_loss"], m["rgb_loss"], m["semantics_loss"],
                                     m["interlevel_loss"], m["sparsity_loss"], m["psnr"]]))
     torch.cuda.synchronize()
@@ -400,6 +653,11 @@ def slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
     print(f"slice: launches in {steps} steps: {train_counts}")
     check(train_counts["cell_encode_fwd"] >= 2 * steps, "a step skipped the forward kernel")
     check(train_counts["cell_encode_bwd"] >= steps, "a step skipped the backward kernel")
+    shapes = [tuple(c.shape) for c in captured]
+    samples = rays * cfg.model.num_nerf_samples
+    print(f"slice: the last step encoded {shapes} points")
+    check(shapes == [(samples, 3), (cfg.model.sparsity_num_points, 3)],
+          f"the last step's grid encodings took {shapes} points")
 
     train_idx = set(data.train_indices.tolist())
     held = [i for i in range(n) if i not in train_idx]
@@ -417,7 +675,7 @@ def slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
     gt = data.images[cam].float() / 255.0
     psnr = -10.0 * math.log10(max(torch.mean((rgb - gt) ** 2).item(), 1e-10))
     print(f"slice: held-out camera {cam} render {h}x{w} in {dt:.3f} s, PSNR {psnr:.3f} dB")
-    return dict(hg.LAUNCHES)
+    return dict(hg.LAUNCHES), captured
 
 
 def corner_config(num_images: int):
@@ -657,10 +915,91 @@ def orchard_phase(dev, iters: int, export_n: int, hg, name: str):
     return {k: sum(c[k] for c in runs) for k in ("cell_encode_fwd", "cell_encode_bwd")}
 
 
+def _other_cell_kernels(lib, hg):
+    """Wrappers of another build's cell_encode pair (the same C interface),
+    uncounted: -> (fwd(table, pos, layout), bwd(table, pos, grad, layout))."""
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def fwd(table, pos, layout):
+        out = torch.empty((pos.shape[0], 2 * layout.num_levels), device=pos.device)
+        err = lib.cell_encode_fwd(pos.data_ptr(), table.data_ptr(), out.data_ptr(), pos.shape[0],
+                                  layout.num_levels, *hg._level_arrays(layout), stream())
+        check(err == 0, f"the other cell_encode_fwd: CUDA error {err}")
+        return out
+
+    def bwd(table, pos, grad, layout):
+        dtable, dpos = torch.zeros_like(table), torch.empty_like(pos)
+        err = lib.cell_encode_bwd(pos.data_ptr(), table.data_ptr(), grad.data_ptr(),
+                                  dtable.data_ptr(), dpos.data_ptr(), pos.shape[0], 1,
+                                  layout.num_levels, *hg._level_arrays(layout), stream())
+        check(err == 0, f"the other cell_encode_bwd: CUDA error {err}")
+        return dtable, dpos
+
+    return fwd, bwd
+
+
+def ab_phase(hg, old_source: Path, layout, captured: list, dev, seed: int) -> dict:
+    """K1/K2 of this checkout ("new") against another ``cell_encode.cu``
+    ("old", built apart) and the plain version, in turns plain, old, new,
+    new, old, plain, at uniform-random points, at the step's fine and
+    sparsity points and (K1 alone) at an export batch. Each is held to the
+    plain version first."""
+    lib, info = hg.build_library([old_source], Path(hg._BUILD) / "ab")
+    print(f"ab: {old_source} built in {info.seconds:.2f} s")
+    old_fwd, old_bwd = _other_cell_kernels(lib, hg)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    rows, nl = layout.total_rows, layout.num_levels
+    sets = {"random": _inputs(dev, g, rows, 16, 2 * nl)}
+    for name, pos in zip(("step_fine", "step_sparsity"), captured):
+        sets[name] = _inputs(dev, g, rows, 16, 2 * nl, pos=pos)
+    export_pos, _ = export_batch(dev)
+    sets["export"] = (torch.rand((rows, 16), generator=g, device=dev) * 2.0 - 1.0, export_pos, None)
+    results = {}
+    for name, (table, pos, grad) in sets.items():
+        iters = 10 if name == "export" else 30
+        fns = {"fwd": {"plain": lambda: hg.cell_encode_torch(table, pos, layout),
+                       "old": lambda: old_fwd(table, pos, layout),
+                       "new": lambda: hg.cell_encode_fwd_cuda(table, pos, layout)}}
+        ref = fns["fwd"]["plain"]()
+        errs = {"fwd_old": (fns["fwd"]["old"]() - ref).abs().max().item(),
+                "fwd_new": (fns["fwd"]["new"]() - ref).abs().max().item()}
+        if grad is not None:
+            t_ = table.clone().requires_grad_(True)
+            p_ = pos.clone().requires_grad_(True)
+            plain_out = hg.cell_encode_torch(t_, p_, layout)
+            fns["bwd"] = {
+                "plain": lambda: torch.autograd.grad(plain_out, (t_, p_), grad, retain_graph=True),
+                "old": lambda: old_bwd(table, pos, grad, layout),
+                "new": lambda: hg.cell_encode_bwd_cuda(table, pos, grad, layout, True)}
+            dt_p, dp_p = fns["bwd"]["plain"]()
+            for side in ("old", "new"):
+                dt, dp = fns["bwd"][side]()
+                errs[f"bwd_{side}"] = max(((dt - dt_p).abs().max() / dt_p.abs().max()).item(),
+                                          ((dp - dp_p).abs().max() / dp_p.abs().max()).item())
+        print(f"ab: {name} P={pos.shape[0]} errors {errs}")
+        for k, e in errs.items():
+            check(e <= (FWD_ATOL if k.startswith("fwd") else BWD_RTOL), f"ab {name} {k}: {e}")
+        row = {"points": pos.shape[0], "errors": errs}
+        for d, sides in fns.items():
+            times = {"plain": [], "old": [], "new": []}
+            for side in ("plain", "old", "new", "new", "old", "plain"):
+                times[side].append(median_ms(sides[side], iters=iters))
+            row[d] = times
+            print(f"ab: {name} {d} ms (median of {iters}) plain {times['plain']} old "
+                  f"{times['old']} new {times['new']}")
+        results[name] = row
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=400, help="steps of each slice")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ab-cell-source", type=Path, default=None,
+                    help="another cell_encode.cu (for example the parent commit's): run only "
+                         "the cell slice, to capture a step's positions, and time its K1/K2 "
+                         "against this checkout's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
@@ -684,13 +1023,21 @@ def main(argv=None) -> int:
     print(f"build: {info.seconds:.2f} s -> {info.path.parent.name}; {len(regs)} kernels")
     for ln in regs:
         print(f"build: {ln}")
+    cell_layout = fruit_nerf(1).model.field.grid.cell_layout()
+    scene = render_scene(SyntheticSceneConfig(image_size=128, num_cameras=24, seed=args.seed),
+                         device=dev)
 
-    kernels = kernel_phase(hg, fruit_nerf(1).model.field.grid.cell_layout(),
-                           corner_config(1).model.field.grid, dev, args.seed)
+    if args.ab_cell_source is not None:
+        _, captured = slice_phase(scene, dev, args.steps, args.seed, hg, name)
+        ab = ab_phase(hg, args.ab_cell_source, cell_layout, captured, dev, args.seed)
+        print(json.dumps({"ab": ab}))
+        print(card)
+        return 0
 
-    scene = render_scene(SyntheticSceneConfig(image_size=128, num_cameras=24, seed=args.seed))
+    kernels = kernel_phase(hg, cell_layout, corner_config(1).model.field.grid, dev, args.seed)
     parity_phase(scene, dev, args.seed)
-    cell_counts = slice_phase(scene, dev, args.steps, args.seed, hg, name)
+    cell_counts, captured = slice_phase(scene, dev, args.steps, args.seed, hg, name)
+    step = step_layout_k12(hg, cell_layout, captured, dev, args.seed)
     corner_counts = corner_slice_phase(scene, dev, args.steps, args.seed, hg, name)
     orchard_counts = orchard_phase(dev, ORCHARD_ITERS, EXPORT_N, hg, name)
     for k in kernels:  # K5/K6's launches were counted on their own path, in the kernel phase
@@ -698,7 +1045,13 @@ def main(argv=None) -> int:
             k["launches"] = corner_counts[k["name"]]
         elif k["name"].startswith("cell_encode"):
             k["launches"] = cell_counts[k["name"]] + orchard_counts[k["name"]]
+    for k, d in zip(kernels[:2], ("fwd", "bwd")):  # K1, K2 at the step's layout
+        k["step"] = {name: {"points": r["points"], **_fields(r, d)} for name, r in step.items()}
+        k["max_abs_err"] = max(k["max_abs_err"], *(r["max_abs_err"] for r in k["step"].values()))
     check("jax" not in sys.modules, "the port imported jax")
+    jax_package = sorted(m for m in sys.modules
+                         if m == "fruitnerf_tpu" or m.startswith("fruitnerf_tpu."))
+    check(not jax_package, f"the port imported the JAX package: {jax_package}")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

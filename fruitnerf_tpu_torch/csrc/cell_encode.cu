@@ -1,8 +1,10 @@
 // Cell-mode multiresolution grid encoding, forward and backward, for Hopper.
 //
 // Replaces the Pallas TPU kernels of fruitnerf_tpu/ops/pallas/hash_grid.py:
-//   forward   _cell2_fwd_kernel  (reached through cell_encode / _cell2_fwd_impl)
-//   backward  _cell2_bwd_kernel  (reached through _cell_encode_bwd)
+//   forward   _cell2_fwd_kernel (:523), through the pallas_call at :702
+//             (cell_encode / _cell2_fwd_impl)
+//   backward  _cell2_bwd_kernel (:581), through the pallas_call at :777
+//             (_cell_encode_bwd)
 //
 // What it computes, per point p and level l (res_l, T_l rows of 16 floats):
 //   s = pos * res_l, cell = floor(s), t = s - cell
@@ -16,28 +18,39 @@
 // The TPU kernel fetched a cell row with a one-hot matmul (the TPU has no
 // fast gather); here a row is four float4 loads. The whole table of the
 // fruit_nerf grid variant (12 x 4096 + 4 x 8192 rows x 64 B, about 5.2 MB)
-// stays in the H100's 50 MB L2, so:
-//   * forward: one thread per (point, level); each thread reads 12 B of
-//     position (shared with the other levels of the point through L1) and
-//     one 64-byte row from L2, and writes 8 B. It is bound by L2 gather
-//     latency, not by DRAM bandwidth or arithmetic.
-//   * backward: one thread per point loops over the levels. dTable takes
-//     16 float atomicAdds per (point, level); they contend on the coarse
-//     levels (level 0 is direct with 4096 rows for ~200k points a step).
-//     dPos is summed over the levels in registers and written once.
-//     The TPU forward saved the gathered rows ([P, 16L]) so its backward
-//     read no table; here the backward re-reads the rows from the table,
-//     which is L2-resident, instead of writing and reading a [P, 256]
-//     float32 residual (about 200 MB a step at P = 200k).
+// stays in the H100's 50 MB L2. Neither kernel is bound by arithmetic
+// (about 60 and 150 float operations per (point, level)); the bound is the
+// bytes of positions, gradients and outputs (about 10 us a train step at
+// 3.35 TB/s), and what held the first version of these kernels far above it
+// was how their threads met the table:
+//   * the train step's points are ray-major, 48 consecutive samples of one
+//     ray, so neighbouring points mostly share a cell at the coarse levels;
+//   * one thread per point put a warp's 32 lanes on the same few dTable rows
+//     in the same instruction: 16 scalar atomics per (point, level) that the
+//     L2 serialises, and gradient reads at a 128-byte stride;
+//   * one thread per (point, level) put a point's levels in adjacent lanes,
+//     so no two lanes of a load ever shared a row.
+//
+// The design: a block takes a tile of 32 consecutive points, one lane per
+// point, and its warps take the levels (warp w: levels w, w + W, ...). The
+// tile's positions and gradients (or outputs) pass through shared memory,
+// read and written as contiguous rows. In a warp, lanes that hit the same
+// row issue one load for it, and in the backward the lanes of each run of
+// consecutive points on the same row sum their 16 products with a
+// segmented warp scan; the run's last lane adds them with four float4
+// atomics (vector atomics on global memory are new in sm_90). Points that
+// share a row but not a run (a hash collision) add separately, which is
+// still correct. dPositions is summed per warp over its levels, then over
+// the warps through shared memory, and written once, coalesced.
 // Everything is float32. The TPU kernel rounds the table, the saved rows
 // and the per-point dTable terms to bfloat16; that divergence is deliberate.
-// Making these kernels fast (vector atomics, shared-memory pre-reduction of
-// the coarse levels, one warp per point) is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define CELL_MAX_LEVELS 32
+#define TILE 32          // points a block: one per lane
+#define MAX_WARPS 16     // warps a block; each takes levels w, w + W, ...
 
 struct CellLevels {
   int num_levels;
@@ -81,72 +94,142 @@ __device__ __forceinline__ void load_row(const float4* __restrict__ table,
   v[12] = d.x; v[13] = d.y; v[14] = d.z; v[15] = d.w;
 }
 
-__global__ void cell_encode_fwd_kernel(const float* __restrict__ pos,
-                                       const float4* __restrict__ table,
-                                       float2* __restrict__ out, int num_points,
-                                       CellLevels lv) {
-  const int num_levels = lv.num_levels;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)num_points * num_levels) return;
-  const int p = (int)(i / num_levels);
-  const int l = (int)(i - (long long)p * num_levels);
-  float tx, ty, tz;
-  const int row = cell_row(lv, l, pos[3 * p], pos[3 * p + 1], pos[3 * p + 2],
-                           &tx, &ty, &tz);
-  float2 acc = make_float2(0.f, 0.f);
-  if (row >= 0) {
-    float v[16];
-    load_row(table, (long long)lv.offset[l] + row, v);
-    const float wx[2] = {1.f - tx, tx};
-    const float wy[2] = {1.f - ty, ty};
-    const float wz[2] = {1.f - tz, tz};
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float w = wx[(c >> 2) & 1] * wy[(c >> 1) & 1] * wz[c & 1];
-      acc.x += w * v[2 * c];
-      acc.y += w * v[2 * c + 1];
-    }
-  }
-  out[i] = acc;  // out is [P, L] float2, i.e. [P, 2L] float, level-major
+// The tile's [n, 2L] block of a [P, 2L] array and the shared-memory copy it
+// is staged in, with a row stride of 2L + 1 floats so that the 32 lanes of
+// a warp, each at its own point and the same level, hit 32 banks.
+__device__ __forceinline__ int tile_stride(int num_levels) {
+  return 2 * num_levels + 1;
 }
 
-__global__ void cell_encode_bwd_kernel(const float* __restrict__ pos,
-                                       const float4* __restrict__ table,
-                                       const float2* __restrict__ grad,
-                                       float* __restrict__ dtable,
-                                       float* __restrict__ dpos,
-                                       int num_points, int needs_pos_grad,
-                                       CellLevels lv) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= num_points) return;
+__global__ void __launch_bounds__(TILE * MAX_WARPS)
+cell_encode_fwd_kernel(const float* __restrict__ pos,
+                       const float4* __restrict__ table,
+                       float* __restrict__ out, int num_points,
+                       CellLevels lv) {
+  __shared__ float s_pos[TILE * 3];
+  __shared__ float s_out[TILE * (2 * CELL_MAX_LEVELS + 1)];
   const int num_levels = lv.num_levels;
-  const float x = pos[3 * p], y = pos[3 * p + 1], z = pos[3 * p + 2];
+  const int width = 2 * num_levels, stride = tile_stride(num_levels);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int num_warps = blockDim.x >> 5;
+  const long long p0 = (long long)blockIdx.x * TILE;
+  const int n = (int)min((long long)TILE, (long long)num_points - p0);
+
+  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) s_pos[i] = pos[3 * p0 + i];
+  __syncthreads();
+  const bool live = lane < n;
+  const float x = live ? s_pos[3 * lane] : 0.f;
+  const float y = live ? s_pos[3 * lane + 1] : 0.f;
+  const float z = live ? s_pos[3 * lane + 2] : 0.f;
+  for (int l = warp; l < num_levels; l += num_warps) {
+    float tx = 0.f, ty = 0.f, tz = 0.f;
+    const int row = live ? cell_row(lv, l, x, y, z, &tx, &ty, &tz) : -1;
+    float ax = 0.f, ay = 0.f;
+    if (row >= 0) {
+      float v[16];
+      load_row(table, (long long)lv.offset[l] + row, v);
+      const float wx[2] = {1.f - tx, tx};
+      const float wy[2] = {1.f - ty, ty};
+      const float wz[2] = {1.f - tz, tz};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float w = wx[(c >> 2) & 1] * wy[(c >> 1) & 1] * wz[c & 1];
+        ax += w * v[2 * c];
+        ay += w * v[2 * c + 1];
+      }
+    }
+    s_out[lane * stride + 2 * l] = ax;
+    s_out[lane * stride + 2 * l + 1] = ay;
+  }
+  __syncthreads();
+  // out is [P, 2L] float, level-major: the tile's rows are contiguous
+  float* dst = out + p0 * width;
+  for (int i = threadIdx.x; i < n * width; i += blockDim.x)
+    dst[i] = s_out[(i / width) * stride + i % width];
+}
+
+__global__ void __launch_bounds__(TILE * MAX_WARPS)
+cell_encode_bwd_kernel(const float* __restrict__ pos,
+                       const float4* __restrict__ table,
+                       const float* __restrict__ grad,
+                       float* __restrict__ dtable,
+                       float* __restrict__ dpos, int num_points,
+                       int needs_pos_grad, CellLevels lv) {
+  __shared__ float s_pos[TILE * 3];
+  __shared__ float s_grad[TILE * (2 * CELL_MAX_LEVELS + 1)];
+  __shared__ float s_dpos[MAX_WARPS][TILE * 3];
+  const unsigned kAll = 0xffffffffu;
+  const int num_levels = lv.num_levels;
+  const int width = 2 * num_levels, stride = tile_stride(num_levels);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int num_warps = blockDim.x >> 5;
+  const long long p0 = (long long)blockIdx.x * TILE;
+  const int n = (int)min((long long)TILE, (long long)num_points - p0);
+
+  const float* src = grad + p0 * width;
+  for (int i = threadIdx.x; i < n * width; i += blockDim.x)
+    s_grad[(i / width) * stride + i % width] = src[i];
+  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) s_pos[i] = pos[3 * p0 + i];
+  __syncthreads();
+  const bool live = lane < n;
+  const float x = live ? s_pos[3 * lane] : 0.f;
+  const float y = live ? s_pos[3 * lane + 1] : 0.f;
+  const float z = live ? s_pos[3 * lane + 2] : 0.f;
+  const unsigned upto_lane = kAll >> (31 - lane);  // lanes 0..lane
   float dx = 0.f, dy = 0.f, dz = 0.f;
-  for (int l = 0; l < num_levels; ++l) {
-    float tx, ty, tz;
-    const int row = cell_row(lv, l, x, y, z, &tx, &ty, &tz);
-    if (row < 0) continue;  // zero row: no table gradient, no position term
-    const float2 g = grad[(long long)p * num_levels + l];
-    const long long r = (long long)lv.offset[l] + row;
+
+  // every lane of the warp runs every iteration: the shuffles need all 32
+  for (int l = warp; l < num_levels; l += num_warps) {
+    float tx = 0.f, ty = 0.f, tz = 0.f;
+    const int row = live ? cell_row(lv, l, x, y, z, &tx, &ty, &tz) : -1;
+    // flat row, or -1: a zero row (no gradient) or a lane past the tile
+    const int key = row >= 0 ? lv.offset[l] + row : -1;
+    const float gx = key >= 0 ? s_grad[lane * stride + 2 * l] : 0.f;
+    const float gy = key >= 0 ? s_grad[lane * stride + 2 * l + 1] : 0.f;
     const float wx[2] = {1.f - tx, tx};
     const float wy[2] = {1.f - ty, ty};
     const float wz[2] = {1.f - tz, tz};
-    float* drow = dtable + r * 16;
+    float d[16];
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       const float w = wx[(c >> 2) & 1] * wy[(c >> 1) & 1] * wz[c & 1];
-      atomicAdd(drow + 2 * c, w * g.x);
-      atomicAdd(drow + 2 * c + 1, w * g.y);
+      d[2 * c] = w * gx;
+      d[2 * c + 1] = w * gy;
     }
-    if (needs_pos_grad) {
+
+    // runs of consecutive lanes on one row: a segmented inclusive scan
+    // leaves each run's sum in its last lane
+    const int prev = __shfl_up_sync(kAll, key, 1);
+    const unsigned heads = __ballot_sync(kAll, lane == 0 || prev != key);
+    if (heads != kAll) {  // some run is longer than one lane (warp-uniform)
+      const int start = 31 - __clz(heads & upto_lane);  // first lane of my run
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          const float v = __shfl_up_sync(kAll, d[k], off);
+          if (lane - off >= start) d[k] += v;
+        }
+      }
+    }
+    const bool last = lane == 31 || ((heads >> (lane + 1)) & 1u);
+    if (last && key >= 0) {
+      float4* drow = reinterpret_cast<float4*>(dtable) + (long long)key * 4;
+      atomicAdd(drow, make_float4(d[0], d[1], d[2], d[3]));
+      atomicAdd(drow + 1, make_float4(d[4], d[5], d[6], d[7]));
+      atomicAdd(drow + 2, make_float4(d[8], d[9], d[10], d[11]));
+      atomicAdd(drow + 3, make_float4(d[12], d[13], d[14], d[15]));
+    }
+
+    if (needs_pos_grad && key >= 0) {
       float v[16];
-      load_row(table, r, v);
+      load_row(table, key, v);
       const float res = (float)lv.res[l];
       float lx = 0.f, ly = 0.f, lz = 0.f;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int cx = (c >> 2) & 1, cy = (c >> 1) & 1, cz = c & 1;
-        const float dw = g.x * v[2 * c] + g.y * v[2 * c + 1];
+        const float dw = gx * v[2 * c] + gy * v[2 * c + 1];
         lx += (cx ? 1.f : -1.f) * wy[cy] * wz[cz] * dw;
         ly += (cy ? 1.f : -1.f) * wx[cx] * wz[cz] * dw;
         lz += (cz ? 1.f : -1.f) * wx[cx] * wy[cy] * dw;
@@ -156,10 +239,17 @@ __global__ void cell_encode_bwd_kernel(const float* __restrict__ pos,
       dz += res * lz;
     }
   }
-  if (needs_pos_grad) {
-    dpos[3 * p] = dx;
-    dpos[3 * p + 1] = dy;
-    dpos[3 * p + 2] = dz;
+
+  if (needs_pos_grad) {  // a kernel argument: uniform over the block
+    s_dpos[warp][3 * lane] = dx;
+    s_dpos[warp][3 * lane + 1] = dy;
+    s_dpos[warp][3 * lane + 2] = dz;
+    __syncthreads();
+    for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
+      float s = 0.f;
+      for (int w = 0; w < num_warps; ++w) s += s_dpos[w][i];
+      dpos[3 * p0 + i] = s;
+    }
   }
 }
 
@@ -176,7 +266,14 @@ static int fill_levels(CellLevels* lv, int num_levels, const int* res,
   return 1;
 }
 
-static const int kThreads = 256;
+// One warp a level up to MAX_WARPS levels; more levels loop over the warps.
+static dim3 tile_block(int num_levels) {
+  return dim3(TILE * (num_levels < MAX_WARPS ? num_levels : MAX_WARPS));
+}
+
+static unsigned tiles(int num_points) {
+  return (unsigned)((num_points + TILE - 1) / TILE);
+}
 
 // Plain C interface, loaded with ctypes. Pointers are device pointers except
 // the four per-level arrays, which are host arrays copied into the kernel's
@@ -189,17 +286,15 @@ extern "C" int cell_encode_fwd(const float* pos, const float* table,
   CellLevels lv;
   if (!fill_levels(&lv, num_levels, res, rows, offset, direct))
     return (int)cudaErrorInvalidValue;
-  const long long n = (long long)num_points * num_levels;
-  if (n == 0) return 0;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  cell_encode_fwd_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      pos, reinterpret_cast<const float4*>(table),
-      reinterpret_cast<float2*>(out), num_points, lv);
+  if (num_points <= 0) return 0;
+  cell_encode_fwd_kernel<<<tiles(num_points), tile_block(num_levels), 0,
+                           (cudaStream_t)stream>>>(
+      pos, reinterpret_cast<const float4*>(table), out, num_points, lv);
   return (int)cudaGetLastError();
 }
 
-// dtable must be zero-filled by the caller; dpos is written only when
-// needs_pos_grad is nonzero.
+// dtable must be zero-filled by the caller and 16-byte aligned (float4
+// atomics); dpos is written only when needs_pos_grad is nonzero.
 extern "C" int cell_encode_bwd(const float* pos, const float* table,
                                const float* grad, float* dtable, float* dpos,
                                int num_points, int needs_pos_grad,
@@ -209,11 +304,10 @@ extern "C" int cell_encode_bwd(const float* pos, const float* table,
   CellLevels lv;
   if (!fill_levels(&lv, num_levels, res, rows, offset, direct))
     return (int)cudaErrorInvalidValue;
-  if (num_points == 0) return 0;
-  const unsigned blocks = (unsigned)((num_points + kThreads - 1) / kThreads);
-  cell_encode_bwd_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      pos, reinterpret_cast<const float4*>(table),
-      reinterpret_cast<const float2*>(grad), dtable, dpos, num_points,
-      needs_pos_grad, lv);
+  if (num_points <= 0) return 0;
+  cell_encode_bwd_kernel<<<tiles(num_points), tile_block(num_levels), 0,
+                           (cudaStream_t)stream>>>(
+      pos, reinterpret_cast<const float4*>(table), grad, dtable, dpos,
+      num_points, needs_pos_grad, lv);
   return (int)cudaGetLastError();
 }

@@ -30,10 +30,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from fruitnerf_tpu.export.ply import write_ply
-
 from ..core.rays import RayBundle
 from ..models.fruit_model import FruitModelConfig, forward_export
+from .ply import write_ply
 
 CLOUDS = ("semantic", "semantic_colormap", "density")
 MAX_PROBES = 1 << 22  # probes a batch

@@ -253,11 +253,11 @@ def _find_nvcc() -> str:
     return found
 
 
-def _source_key() -> str:
+def _source_key(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update(name.encode())
-        h.update((_CSRC / name).read_bytes())
+    for path in sources:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -268,26 +268,19 @@ class BuildInfo:
     log: str  # nvcc's output (-Xptxas -v: registers, spills)
 
 
-_LIB: ctypes.CDLL | None = None
-_BUILD_INFO: BuildInfo | None = None
-
-
-def build_kernels() -> BuildInfo:
-    """Compile ``csrc/*.cu`` into a shared library (once per source hash)
-    and load it. Returns where it lies, the seconds the build took and the
-    compiler's output."""
-    global _LIB, _BUILD_INFO
-    if _BUILD_INFO is not None:
-        return _BUILD_INFO
-    out_dir = _BUILD / _source_key()
+def build_library(sources, build_dir: Path) -> tuple[ctypes.CDLL, BuildInfo]:
+    """Compile CUDA ``sources`` into one shared library under
+    ``build_dir/<source hash>/`` (once per source hash), load it, and declare
+    the kernels' C interface. Returns the library and its ``BuildInfo``."""
+    sources = [Path(s) for s in sources]
+    out_dir = Path(build_dir) / _source_key(sources)
     lib_path = out_dir / "libfruitnerf_kernels.so"
     log_path = out_dir / "nvcc.log"
     seconds = 0.0
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f"libfruitnerf_kernels.{os.getpid()}.so"
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(_CSRC / s) for s in _SOURCES)]
+        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in sources)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -299,22 +292,32 @@ def build_kernels() -> BuildInfo:
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     arr = ctypes.POINTER(ctypes.c_int)
-    lib.cell_encode_fwd.argtypes = [ptr, ptr, ptr, i32, i32, arr, arr, arr, arr, ptr]
-    lib.cell_encode_fwd.restype = i32
-    lib.cell_encode_bwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, arr, arr, arr, arr, ptr,
-    ]
-    lib.cell_encode_bwd.restype = i32
-    lib.corner_encode_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i32, arr, arr, arr, arr, ptr]
-    lib.corner_encode_fwd.restype = i32
-    lib.corner_encode_bwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, arr, arr, arr, arr, ptr,
-    ]
-    lib.corner_encode_bwd.restype = i32
-    _LIB = lib
-    _BUILD_INFO = BuildInfo(
-        lib_path, seconds, log_path.read_text() if log_path.exists() else ""
-    )
+    signatures = {
+        "cell_encode_fwd": [ptr, ptr, ptr, i32, i32, arr, arr, arr, arr, ptr],
+        "cell_encode_bwd": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, arr, arr, arr, arr, ptr],
+        "corner_encode_fwd": [ptr, ptr, ptr, i32, i32, i32, arr, arr, arr, arr, ptr],
+        "corner_encode_bwd": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, arr, arr, arr, arr,
+                              ptr],
+    }
+    for name, argtypes in signatures.items():
+        if hasattr(lib, name):  # a library of one source has that source's pair
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = i32
+    info = BuildInfo(lib_path, seconds, log_path.read_text() if log_path.exists() else "")
+    return lib, info
+
+
+_LIB: ctypes.CDLL | None = None
+_BUILD_INFO: BuildInfo | None = None
+
+
+def build_kernels() -> BuildInfo:
+    """Compile ``csrc/*.cu`` into a shared library (once per source hash)
+    and load it. Returns where it lies, the seconds the build took and the
+    compiler's output."""
+    global _LIB, _BUILD_INFO
+    if _BUILD_INFO is None:
+        _LIB, _BUILD_INFO = build_library([_CSRC / s for s in _SOURCES], _BUILD)
     return _BUILD_INFO
 
 
@@ -336,9 +339,8 @@ def _level_arrays(layout: CellLayout):
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device, align: int = 4):
-    """The cell kernels read the table as float4 (16-byte aligned) and the
-    gradient as float2 (8-byte aligned); the corner kernels read table rows
-    as float2 or float4 where F is 2 or 4."""
+    """The cell kernels read the table as float4 (16-byte aligned); the
+    corner kernels read table rows as float2 or float4 where F is 2 or 4."""
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != torch.float32:
@@ -384,7 +386,7 @@ def cell_encode_bwd_cuda(
     p = positions.shape[0]
     _check("table", table, (layout.total_rows, 16), dev, align=16)
     _check("positions", positions, (p, 3), dev)
-    _check("grad", grad, (p, 2 * layout.num_levels), dev, align=8)
+    _check("grad", grad, (p, 2 * layout.num_levels), dev)
     dtable = torch.zeros_like(table)
     dpos = torch.empty_like(positions) if needs_pos_grad else None
     stream = torch.cuda.current_stream(dev).cuda_stream

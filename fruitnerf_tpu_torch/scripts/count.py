@@ -1,6 +1,6 @@
-"""Counting CLI: the fruit count of an exported cloud through the JAX
-package's counting cascade (numpy, scipy and the native library). Twin of
-``fruitnerf_tpu/scripts/count.py``.
+"""Counting CLI: the fruit count of an exported cloud through the counting
+cascade (numpy, scipy and the native library; the port's copy in
+``counting/`` and ``native/``). Twin of ``fruitnerf_tpu/scripts/count.py``.
 
     python -m fruitnerf_tpu_torch count --cloud out/semantic_colormap.ply \\
         --profile apple --output results.json
@@ -11,28 +11,45 @@ is recorded as ``cloud_used`` in the printed and written results.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 from pathlib import Path
 
-from fruitnerf_tpu.scripts.count import (  # noqa: F401  (the CLI and fallback are shared)
-    _with_semantic_fallback,
-    add_args,
-)
+
+def add_args(p: argparse.ArgumentParser):
+    p.add_argument("--cloud", required=True, help="semantic_colormap.ply path")
+    p.add_argument("--profile", default=None,
+                   help="named profile (apple, pear, ..., tree_01, fuji)")
+    p.add_argument("--template", default="apple")
+    p.add_argument("--template-size", type=float, default=1.0)
+    p.add_argument("--eps", type=float, default=0.01)
+    p.add_argument("--min-samples", type=int, default=100)
+    p.add_argument("--remove-outliers-nb-points", type=int, default=200)
+    p.add_argument("--remove-outliers-radius", type=float, default=0.01)
+    p.add_argument("--down-sample", type=float, default=0.001)
+    p.add_argument("--cluster-merge-distance", type=float, default=0.04)
+    p.add_argument("--minimum-size-factor", type=float, default=0.3)
+    p.add_argument("--gt-count", type=int, default=None)
+    p.add_argument("--gt-cluster", default=None, help="fruits.obj GT positions")
+    p.add_argument("--output", default=None, help="results JSON path")
+    p.add_argument("--sweep", action="store_true",
+                   help="grid-search nb_points x eps x template_size")
 
 
 def native_library() -> Path | None:
     """The native counting library's path once it is built and loaded, else
-    None. Without it a cloud of 50k points or more goes to the JAX-only
-    device DBSCAN, so the port needs it (it builds with g++ at first use)."""
-    from fruitnerf_tpu import native
+    None. It builds with g++ at first use; without it the cascade takes the
+    numpy grid engine, which gives the same labels far more slowly on an
+    export-sized cloud."""
+    from .. import native
 
     return native._SO if native.load() is not None else None
 
 
 def _profile(args):
-    from fruitnerf_tpu.counting.clustering import CountingProfile
-    from fruitnerf_tpu.counting.profiles import ALL_PROFILES
+    from ..counting.clustering import CountingProfile
+    from ..counting.profiles import ALL_PROFILES
 
     if args.profile:
         if args.profile not in ALL_PROFILES:
@@ -59,7 +76,7 @@ def _profile(args):
 
 
 def main(args):
-    from fruitnerf_tpu.counting.runner import run_profiles, run_sweep
+    from ..counting.runner import run_profiles, run_sweep
 
     profile = _profile(args)
     cloud = _with_semantic_fallback(args.cloud)
@@ -73,3 +90,32 @@ def main(args):
         Path(args.output).write_text(json.dumps(results, indent=2))
     print(json.dumps(results, indent=2))
     return results
+
+
+def _with_semantic_fallback(cloud_path: str) -> str:
+    """Fall back from an empty/missing semantic_colormap.ply to the sibling
+    semantic.ply (logit>=3 cloud).
+
+    The colormap cloud needs the sigmoid head to reach >=0.9 — on short runs
+    (e.g. the quick-start's 2000-iter smoke demo) or tiny scenes the head may
+    not be that saturated yet while the logit>=3 semantic cloud already is
+    (same guard the multi-scene campaign applies; threshold semantics per
+    reference exporter_utils.py:106-114)."""
+    from ..export.ply import read_ply
+
+    p = Path(cloud_path)
+    empty = not p.exists()
+    if not empty:
+        try:
+            empty = len(read_ply(p)["points"]) == 0
+        except Exception:
+            empty = False  # unreadable: let the counter raise its own error
+    sibling = p.with_name("semantic.ply")
+    if empty and p.name == "semantic_colormap.ply" and sibling.exists():
+        print(
+            f"[count] {p.name} is empty (semantics not yet colormap-"
+            f"saturated at this training length); falling back to {sibling}",
+            flush=True,
+        )
+        return str(sibling)
+    return cloud_path

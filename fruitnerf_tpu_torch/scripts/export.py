@@ -7,22 +7,60 @@
 The run's manifest rebuilds the training config (preset, variant, config
 overrides) and its grid layout, which must match; the latest checkpoint
 supplies the parameters. Writes ``semantic.ply``, ``semantic_colormap.ply``
-and ``density.ply`` into ``--output-dir``.
+and ``density.ply`` into ``--output-dir``. It runs on the card unless
+``--device cpu`` asks for the CPU.
 """
 from __future__ import annotations
 
+import argparse
 from pathlib import Path
 
-from fruitnerf_tpu.scripts.export import add_args  # noqa: F401  (the CLI is shared)
+
+def add_args(p: argparse.ArgumentParser):
+    p.add_argument("--load-dir", required=True, help="run dir (manifest + checkpoints)")
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--mode", choices=("semantic-pointcloud", "pointcloud"),
+                   default="semantic-pointcloud",
+                   help="semantic volume export, or the stock depth-"
+                        "backprojected RGB cloud (exporter.py:124-129)")
+    p.add_argument("--data", default="synthetic",
+                   help="pointcloud mode: dataset dir with transforms.json, "
+                        "or 'synthetic'")
+    p.add_argument("--num-points", type=int, default=1_000_000,
+                   help="pointcloud mode: target cloud size")
+    p.add_argument("--acc-threshold", type=float, default=0.5)
+    p.add_argument("--pointcloud-cameras", type=int, default=24,
+                   help="pointcloud mode: number of cameras to render")
+    p.add_argument("--num-points-per-side", type=int, default=1000)
+    p.add_argument("--num-rays-per-batch", type=int, default=32768)
+    p.add_argument("--bounding-box-min", type=float, nargs=3, default=(-1, -1, -1))
+    p.add_argument("--bounding-box-max", type=float, nargs=3, default=(1, 1, 1))
+    p.add_argument("--semantic-logit-threshold", type=float, default=3.0)
+    p.add_argument("--density-threshold", type=float, default=70.0)
+    p.add_argument(
+        "--colormap-prob-threshold", type=float, default=0.9,
+        help="sigmoid threshold for the semantic_colormap cloud; 0.9 is the "
+             "reference's EFFECTIVE mask (its >=0.999 compare runs on the "
+             "binary heaviside@0.9 label, fruit_nerf.py:261-265 + "
+             "exporter_utils.py:106,112 — see export/volume_sampler.py)",
+    )
+    p.add_argument(
+        "--mesh", action="store_true",
+        help="shard the probe stream over all visible devices (each device "
+             "field-queries + compacts its ray shard; combine with the "
+             "global --cpu-mesh N to exercise without chips)",
+    )
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the card; 'cpu' "
+                        "asks for the CPU explicitly)")
 
 
 def main(args):
-    import torch
-
     from ..configs import apply_overrides, get_preset
     from ..engine.checkpoints import grid_from_manifest, read_manifest, resume_from_latest
     from ..engine.trainer import init_train_state
     from ..export.volume_sampler import ExportConfig, sample_volume
+    from ..utils import resolve_device
 
     if args.mode == "pointcloud":
         raise NotImplementedError(
@@ -33,7 +71,7 @@ def main(args):
         raise NotImplementedError(
             "export --mesh (multi-device export) is not ported (ROADMAP Queue 1 item 13)"
         )
-    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    dev = resolve_device(args.device)
     run_dir = Path(args.load_dir)
     manifest = read_manifest(run_dir)
     preset, num_images = manifest["preset"], manifest["num_images"]

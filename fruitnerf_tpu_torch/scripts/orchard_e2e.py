@@ -6,16 +6,17 @@ with its keys.
     python -m fruitnerf_tpu_torch orchard-e2e --num-fruits 120 --num-cameras 200 \\
         --image-size 256 --iters 30000 --export-n 384 --output-dir runs/bench
 
-It runs on the GPU when there is one, else on the CPU; the report's
-``device`` names the card, or "cpu". A rerun on the same
-``--output-dir`` resumes from the latest checkpoint. Unlike the JAX twin it
-writes the manifest before training, with the scene's camera elevation, and
-a resume whose ``--camera-elevation`` differs from the manifest's raises
-ValueError. A run of zero steps (a resume at the final step) reports its
+It runs on the card unless ``--device cpu`` asks for the CPU, and raises
+where there is no card; the report's ``device`` names the card, or "cpu".
+A rerun on the same ``--output-dir`` resumes from the latest checkpoint.
+Unlike the JAX twin it writes the manifest before training, with the
+scene's camera elevation, and a resume whose ``--camera-elevation`` differs
+from the manifest's raises ValueError. A run of zero steps (a resume at the final step) reports its
 rates as null.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import time
@@ -23,11 +24,158 @@ from pathlib import Path
 
 import numpy as np
 
-from fruitnerf_tpu.scripts.orchard_e2e import (  # noqa: F401  (the CLI and profile are shared)
-    add_args,
-    cli_overrides,
-    counting_profile_for,
-)
+
+def add_args(p: argparse.ArgumentParser):
+    p.add_argument("--num-fruits", type=int, default=283)
+    p.add_argument("--num-cameras", type=int, default=120)
+    p.add_argument("--image-size", type=int, default=512)
+    p.add_argument("--iters", type=int, default=30000)
+    p.add_argument("--variant", default="grid",
+                   choices=["grid", "tpu", "parity"])
+    p.add_argument("--preset", default="fruit_nerf")
+    p.add_argument("--export-n", type=int, default=512,
+                   help="probe-grid side length N (N^3 probes)")
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--seed", type=int, default=7)
+    p.add_argument("--train-rays-per-batch", type=int, default=None)
+    p.add_argument("--distortion-loss", action="store_true",
+                   help="add the distortion term to the loss (anti-floater; "
+                        "the reference keeps it metric-only, "
+                        "fruit_nerf.py:400)")
+    p.add_argument("--sparsity-loss", type=float, default=0.005,
+                   help="occupancy-sparsity weight; the headline counting "
+                        "recipe is preset density-bias -3 + prior 0.005 "
+                        "(carves inter-fruit bridges the cascade would "
+                        "otherwise over-split, NOTES_ROUND3); 0 = off")
+    p.add_argument("--table-size", type=int, default=None,
+                   help="override the grid variant's per-level table size")
+    p.add_argument("--mid-table-size", type=int, default=None,
+                   help="two-tier capacity: cap all but the finest "
+                        "--fine-levels levels at this table size (kernel "
+                        "cost is linear in sum(T_l); see "
+                        "GridEncodingConfig.mid_table_size)")
+    p.add_argument("--fine-levels", type=int, default=None,
+                   help="how many finest levels keep the full table size "
+                        "when --mid-table-size is set (default 4)")
+    p.add_argument("--grid-levels", type=int, default=None,
+                   help="override the grid variant's number of levels "
+                        "(same base/max res; the encode cost is linear in "
+                        "hashed levels, so L is a speed-vs-quality axis)")
+    p.add_argument("--nerf-samples", type=int, default=None,
+                   help="override num_nerf_samples (field samples/ray; the "
+                        "48->32 speed/quality trade study)")
+    p.add_argument("--sparsity-boost", type=float, default=None,
+                   help="override sparsity_unobserved_boost (frustum-gap fog)")
+    p.add_argument("--sparsity-points", type=int, default=None,
+                   help="override sparsity_num_points")
+    p.add_argument("--sparsity-cell", type=float, default=None,
+                   help="override sparsity_cell (occupancy cell size)")
+    p.add_argument("--density-bias", type=float, default=None,
+                   help="override the density-logit init bias (production "
+                        "presets default to -3 = empty-start; 0 restores "
+                        "the reference-equivalent fog init)")
+    p.add_argument("--no-camera-opt", action="store_true",
+                   help="disable the SO3xR3 camera optimizer (synthetic "
+                        "scenes have exact poses; with a negative density "
+                        "bias, early pose gradients can run poses away "
+                        "before geometry forms)")
+    p.add_argument("--no-jitter", action="store_true",
+                   help="disable sub-pixel ray jitter (A/B isolation)")
+    p.add_argument("--camera-elevation", type=float, nargs=2, default=None,
+                   metavar=("LO", "HI"),
+                   help="camera elevation sweep in radians (default keeps the "
+                        "historic (0.25, 0.80) upper ring; ~(-0.2, 0.8) adds "
+                        "below-horizon views of the low crown, mirroring the "
+                        "reference's capture protocol of circling the tree "
+                        "at fruit height)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the card; 'cpu' "
+                        "asks for the CPU explicitly)")
+
+
+def cli_overrides(args) -> dict:
+    """Flat config-override dict (configs.OVERRIDE_KEYS) from CLI args.
+
+    Only keys the user actually set are returned (None = not requested), so
+    the manifest's ``config_overrides`` records exactly the deltas needed to
+    rebuild this run's config at export/eval/viewer time — the equivalent of
+    the reference persisting its full config.yaml per run (exporter.py:86).
+    ``--sparsity-loss`` is always recorded (it is a float flag with a non-zero
+    default that IS the headline recipe), including an explicit 0
+    (ADVICE r4: truthiness checks dropped explicit zeros).
+    """
+    return {
+        k: v
+        for k, v in {
+            "train_rays_per_batch": args.train_rays_per_batch,
+            "distortion_loss": True if args.distortion_loss else None,
+            "sparsity_loss": args.sparsity_loss,
+            "sparsity_boost": args.sparsity_boost,
+            "sparsity_points": args.sparsity_points,
+            "sparsity_cell": args.sparsity_cell,
+            "table_size": args.table_size,
+            "grid_levels": args.grid_levels,
+            "mid_table_size": args.mid_table_size,
+            "fine_levels": args.fine_levels,
+            "nerf_samples": args.nerf_samples,
+            "density_bias": args.density_bias,
+            "camera_opt": False if args.no_camera_opt else None,
+            "subpixel_jitter": False if args.no_jitter else None,
+        }.items()
+        if v is not None
+    }
+
+
+def counting_profile_for(fruit_radius_world: float, num_fruits: int):
+    """Counting profile scaled to the orchard's fruit radius, in TRUE world
+    units: exported clouds land in x1 world coordinates (the 1/scale x2
+    un-normalization cancels the contraction/normalization mismatch —
+    round-1 calibration finding, re-verified here: 99.8% of exported
+    semantic points fall within 2 fruit radii of a true center at x1, none
+    at x2). Density hyperparameters are calibrated for threshold-crossing
+    clouds (~175 pts/fruit at 512^3): light outlier removal, small
+    min_samples, prune factor sized for partial hulls. Round-3 headline
+    (283 fruits / 300 cams / 512^2, bias -3 + prior 5e-3, jitter on):
+    count 284/283 (0.35%), F1 0.970; prior-only gives 287 (1.4%), and
+    NO-prior clouds over-split to ~300 (bridged blobs, NOTES_ROUND3)."""
+    from ..counting.clustering import CountingProfile
+    from ..counting.templates import BASE_RADIUS
+
+    r = fruit_radius_world
+    return CountingProfile(
+        name=f"orchard_{num_fruits}",
+        # The synthetic orchard renders SPHERE fruits; the template must match
+        # the scene's fruit shape (as the reference pairs apple_template.ply
+        # with the apple scene, run_clustering.py:40-47). Round-4 used the
+        # apple template here, whose hull is ~0.45x a sphere's — every
+        # near-complete single-fruit shell then exceeded the reference's
+        # vol > template/0.9 split gate and the split stage over-cut
+        # (VERDICT r4 weak #2: +20 FP at the best recipe).
+        template="sphere",
+        template_size=r / BASE_RADIUS,
+        remove_outliers_nb_points=3,
+        remove_outliers_radius=0.45 * r,
+        down_sample=0.03 * r,
+        eps=0.6 * r,
+        min_samples=6,
+        cluster_merge_distance=1.2 * r,
+        # Round-5 full-cascade calibration (scripts_dev/simulate_cascade.py:
+        # simulate split+prune on the three committed round-4 clouds, score
+        # FINAL count + GT-matched F1): gate 1.6 — a complete single-fruit
+        # shell's hull is ~1 sphere volume and the threshold band fattens it,
+        # so the reference's 1/0.9 gate sends nearly every whole fruit into
+        # the split branch; penalty 0.2r stops the flat-tail Ward argmin
+        # drifting to k>1 on single fruits (r4 weak #2: +20 FP); prune 0.005
+        # — 0.02 was pruning real partial shells (9 of 15 pruned on the r4
+        # default-headline cloud had a true fruit). Result on the committed
+        # clouds: mid4096f4 284/283 (0.35%, F1 0.970), default 279/283
+        # (1.41%, F1 0.986), plum 625/781 (field-limited: 162 fruits have
+        # zero export points at N=512 — NOTES_ROUND5).
+        minimum_size_factor=0.005,
+        split_volume_gate=1.6,
+        split_k_penalty=0.2 * r,
+        gt_count=num_fruits,
+    )
 
 
 def _rate(steps: int, rays_per_step: int, seconds: float | None):
@@ -37,17 +185,17 @@ def _rate(steps: int, rays_per_step: int, seconds: float | None):
 def main(args):
     import torch
 
-    from fruitnerf_tpu.counting.clustering import FruitClustering, evaluate_against_gt
-
     from ..configs import apply_overrides, get_preset
+    from ..counting.clustering import FruitClustering, evaluate_against_gt
     from ..data.builder import dataset_from_scene
     from ..data.synthetic import cached_render_scene, orchard_config
     from ..engine import checkpoints as ck
     from ..engine.trainer import evaluate_all, init_train_state, train_loop
     from ..export.volume_sampler import ExportConfig, sample_volume
+    from ..utils import resolve_device
     from ..utils.writer import MetricWriter
 
-    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    dev = resolve_device(args.device)
     out = Path(args.output_dir)
     out.mkdir(parents=True, exist_ok=True)
     # the device the numbers below were taken on: the card's name, or "cpu"

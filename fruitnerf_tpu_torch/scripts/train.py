@@ -4,17 +4,48 @@
     python -m fruitnerf_tpu_torch train --data synthetic --output-dir runs/my_run
 
 The run directory receives ``manifest.json`` (what ``export`` reads),
-``checkpoints/`` and ``metrics.jsonl``. Training on a capture directory
+``checkpoints/`` and ``metrics.jsonl``. It runs on the card unless
+``--device cpu`` asks for the CPU. Training on a capture directory
 (``transforms.json``) is not ported yet.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from pathlib import Path
 
 import numpy as np
 
-from fruitnerf_tpu.scripts.train import add_args  # noqa: F401  (the CLI is shared)
+
+def add_args(p: argparse.ArgumentParser):
+    p.add_argument("--preset", default="fruit_nerf",
+                   help="fruit_nerf | fruit_nerf_big | fruit_nerf_huge | fruit_nerf_smoke")
+    p.add_argument("--variant", default="grid",
+                   choices=["grid", "tpu", "parity"])
+    p.add_argument("--data", required=True,
+                   help="dataset dir with transforms.json, or 'synthetic'")
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--max-iters", type=int, default=None)
+    p.add_argument("--train-rays-per-batch", type=int, default=None)
+    p.add_argument("--downscale-factor", type=int, default=None)
+    p.add_argument("--train-split-fraction", type=float, default=None,
+                   help="override the preset's train split fraction")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in output-dir")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--lpips-weights", default=None,
+                   help="npz of LPIPS backbone weights (utils/lpips.py schema); "
+                        "adds LPIPS to eval metrics")
+    p.add_argument("--sparsity-loss", type=float, default=0.0,
+                   help="occupancy-sparsity weight; recommended ~0.005 on "
+                        "bright-background captures to suppress background-"
+                        "colored fog (0 = off, reference parity)")
+    p.add_argument("--distortion-loss", action="store_true",
+                   help="add the distortion term to the loss (the reference "
+                        "keeps it metric-only, fruit_nerf.py:400)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the card; 'cpu' "
+                        "asks for the CPU explicitly)")
 
 
 def main(args):
@@ -25,6 +56,7 @@ def main(args):
     from ..data.synthetic import SyntheticSceneConfig, render_scene
     from ..engine.checkpoints import resume_from_latest, write_manifest
     from ..engine.trainer import evaluate_all, init_train_state, train_loop
+    from ..utils import resolve_device
     from ..utils.writer import MetricWriter
 
     if args.data != "synthetic":
@@ -34,7 +66,7 @@ def main(args):
         )
     if args.lpips_weights is not None:
         raise NotImplementedError("LPIPS (utils/lpips.py) is ROADMAP Queue 1 item 14")
-    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    dev = resolve_device(args.device)
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
 

@@ -1,0 +1,14 @@
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: the card unless the caller names the
+    CPU. Asking for a card where torch finds none raises; nothing falls back
+    to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} was asked for, but torch {torch.__version__} finds no CUDA "
+            "card; pass --device cpu (device='cpu') to run on the CPU"
+        )
+    return dev

@@ -1,5 +1,8 @@
 """The CUDA kernels (cell_encode, corner_encode, and the cell-v1 route of
-grid_encode_flat) against their plain PyTorch versions, on a card. Every test here is marked ``gpu`` and skips without one. This file
+grid_encode_flat) against their plain PyTorch versions, on a card: the
+tiled cell kernels also at ray-ordered points, with every point in one
+cell, at 1 to 32 levels and at a P that is no multiple of their tile. Every
+test here is marked ``gpu`` and skips without one. This file
 imports no JAX, so it runs on the GPU machine, which has none:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
@@ -87,6 +90,57 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         hg.cell_encode_fwd_cuda(flat[1:].view(layout.total_rows, 16), pos, layout)
     with pytest.raises(ValueError, match="table on"):
         hg.cell_encode(table, pos.cpu(), layout)
+
+
+def _levels(num_levels):
+    """The preset's shape at ``num_levels`` levels: res 16..2048, a direct
+    level 0 (16^3 = 4096 rows), hashed levels of 4096 rows."""
+    res = [16] if num_levels == 1 else [
+        int(16 * (2048 / 16) ** (l / (num_levels - 1))) for l in range(num_levels)]
+    return hg.CellLayout.from_levels(res, hg.cell_level_layout(res, 4096, 128))
+
+
+def _points(dev, g, kind, n_rays=64, samples=48, extra=13):
+    """P = 64 x 48 + 13 points (not a multiple of the kernels' 32-point
+    tile). "ray_ordered": 48 consecutive samples along each ray, as a train
+    step orders them; "one_cell": every point in one level-0 cell (the
+    worst contention). Point 5 sits at z = 1.0, past level 0's table."""
+    p = n_rays * samples + extra
+    if kind == "one_cell":
+        pos = 0.5 + 0.01 * torch.rand((p, 3), generator=g, device=dev)
+    else:
+        origin = 0.2 + 0.6 * torch.rand((n_rays, 1, 3), generator=g, device=dev)
+        d = torch.randn((n_rays, 1, 3), generator=g, device=dev)
+        t = torch.sort(torch.rand((n_rays, samples, 1), generator=g, device=dev), dim=1).values
+        ray = (origin + 0.15 * t * d / d.norm(dim=-1, keepdim=True)).clamp(0.0, 0.999)
+        pos = torch.cat([ray.reshape(-1, 3), torch.rand((extra, 3), generator=g, device=dev)])
+    pos[5] = torch.tensor([0.5, 0.5, 1.0])
+    return pos.contiguous()
+
+
+@pytest.mark.parametrize("kind", ["ray_ordered", "one_cell"])
+@pytest.mark.parametrize("num_levels", [1, 5, 16, 32])
+def test_tiled_cell_kernels_match_plain(dev, num_levels, kind):
+    """The tiled K1/K2 (a warp a level, a lane a point, runs of lanes on one
+    row merged into float4 atomics) against the plain version, with and
+    without dPositions."""
+    layout = _levels(num_levels)
+    assert layout.direct[0] and layout.rows[0] == 4096
+    g = torch.Generator(device=dev).manual_seed(num_levels)
+    table = torch.rand((layout.total_rows, 16), generator=g, device=dev) * 2 - 1
+    pos = _points(dev, g, kind)
+    grad = torch.randn((pos.shape[0], 2 * num_levels), generator=g, device=dev)
+    out = hg.cell_encode_fwd_cuda(table, pos, layout)
+    torch.testing.assert_close(out, hg.cell_encode_torch(table, pos, layout), atol=FWD_ATOL,
+                               rtol=0)
+    assert float(out[5, :2].abs().max()) == 0.0  # the zero row
+    t_ = table.clone().requires_grad_(True)
+    p_ = pos.clone().requires_grad_(True)
+    hg.cell_encode_torch(t_, p_, layout).backward(grad)
+    dt, dp = hg.cell_encode_bwd_cuda(table, pos, grad, layout, True)
+    assert _rel(dt, t_.grad) <= BWD_RTOL and _rel(dp, p_.grad) <= BWD_RTOL
+    dt_only, none = hg.cell_encode_bwd_cuda(table, pos, grad, layout, False)
+    assert none is None and _rel(dt_only, t_.grad) <= BWD_RTOL
 
 
 # corner mode: a direct level whose corners fill their table (8^3 = 512

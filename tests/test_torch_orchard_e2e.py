@@ -1,9 +1,12 @@
 """The port's CLI (``python -m fruitnerf_tpu_torch``) end to end at toy size,
-each command in a fresh interpreter where importing JAX fails: orchard-e2e
+each command in a fresh interpreter where importing JAX or the JAX package
+fails, on the CPU through ``--device cpu``: orchard-e2e
 writes its report, manifest and clouds; a rerun resumes with zero steps and
 null rates; a resume with another camera elevation raises; export on the
 run directory reproduces the clouds; count records the cloud it fell back
-to; train writes a run that export reads. Also ``get_preset``."""
+to; train writes a run that export reads; without ``--device`` a command
+asks for the card and fails where there is none. Also ``get_preset``, and
+that no module of the port imports the JAX package."""
 import json
 import os
 import subprocess
@@ -14,21 +17,25 @@ import numpy as np
 import pytest
 import torch
 
-from fruitnerf_tpu import native
-from fruitnerf_tpu.export.ply import read_ply, write_ply
+from fruitnerf_tpu import native as jax_native
 from fruitnerf_tpu_torch import __main__ as port_cli
-from fruitnerf_tpu_torch import configs
+from fruitnerf_tpu_torch import configs, native
+from fruitnerf_tpu_torch.export.ply import read_ply, write_ply
 from fruitnerf_tpu_torch.scripts import count
 
 REPO = Path(__file__).resolve().parents[1]
-# Runs ``python -m fruitnerf_tpu_torch <args>`` with JAX, flax and optax unimportable.
-NO_JAX = """
-import runpy, sys
+# Makes JAX, flax, optax and the JAX package unimportable.
+BLOCK = """
+import sys
 class NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "fruitnerf_tpu"):
             raise ImportError(f"{name} is blocked: the port runs without JAX")
 sys.meta_path.insert(0, NoJax())
+"""
+# Runs ``python -m fruitnerf_tpu_torch <args>`` behind BLOCK.
+NO_JAX = BLOCK + """
+import runpy
 sys.argv[0] = "fruitnerf_tpu_torch"
 runpy.run_module("fruitnerf_tpu_torch", run_name="__main__", alter_sys=True)
 """
@@ -36,16 +43,16 @@ TOY = ["--num-fruits", "6", "--num-cameras", "6", "--image-size", "32", "--iters
        "--export-n", "32", "--train-rays-per-batch", "256", "--grid-levels", "4",
        "--table-size", "512", "--mid-table-size", "256", "--fine-levels", "2",
        # a dense start, so that the density cloud is not empty after 20 steps
-       "--density-bias", "5"]
+       "--density-bias", "5", "--device", "cpu"]
 # the JAX twin's report keys
 REPORT_KEYS = {"args", "render_scene_s", "fruit_radius", "train_s", "train_rays_per_sec",
                "loop_timings", "train_rays_per_sec_train_only", "eval", "eval_s", "export_s",
                "export_probes_per_sec", "export_points", "count_s", "counting", "gt_count"}
 
 
-def cli(*args, check=True) -> subprocess.CompletedProcess:
+def cli(*args, check=True, script=NO_JAX) -> subprocess.CompletedProcess:
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", NO_JAX, *map(str, args)], capture_output=True,
+    proc = subprocess.run([sys.executable, "-c", script, *map(str, args)], capture_output=True,
                           text=True, timeout=300, env=env, cwd=REPO)
     if check:
         assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
@@ -67,9 +74,7 @@ def test_orchard_e2e_writes_report_manifest_and_clouds(run):
     report = json.loads((run / "orchard_report.json").read_text())
     assert REPORT_KEYS <= set(report)
     assert report["gt_count"] == 6 and report["steps_run"] == 20
-    # the device the numbers were taken on
-    assert report["device"] == (torch.cuda.get_device_name(0) if torch.cuda.is_available()
-                                else "cpu")
+    assert report["device"] == "cpu"  # the device the numbers were taken on
     assert report["train_rays_per_sec"] > 0 and report["train_rays_per_sec_train_only"] > 0
     assert set(report["counting"]) == {"semantic_colormap", "semantic"}
     manifest = json.loads((run / "manifest.json").read_text())
@@ -102,7 +107,8 @@ def test_resume_with_another_camera_elevation_raises(run):
 
 def test_export_reproduces_the_clouds(run):
     out = run / "export"
-    proc = cli("export", "--load-dir", run, "--output-dir", out, "--num-points-per-side", 32)
+    proc = cli("export", "--load-dir", run, "--output-dir", out, "--num-points-per-side", 32,
+               "--device", "cpu")
     assert "loaded step 20" in proc.stdout
     for name, cloud in _clouds(out).items():
         np.testing.assert_array_equal(cloud["points"], _clouds(run)[name]["points"], err_msg=name)
@@ -130,14 +136,20 @@ def test_count_records_the_cloud_used(tmp_path):
 
 
 def test_native_library_is_the_counting_cascades():
-    """The port reports the library the shared cascade loads, or None."""
-    assert count.native_library() == (native._SO if native.load() is not None else None)
+    """The port loads its own build of the native library, and it gives the
+    JAX package's library's labels."""
+    if jax_native.load() is None:
+        pytest.skip("g++ could not build the native counting library")
+    lib = count.native_library()
+    assert lib is not None and lib == native.library_path() != jax_native._SO
+    pts = np.random.default_rng(4).normal(size=(2000, 3)).astype(np.float32)
+    np.testing.assert_array_equal(native.dbscan(pts, 0.2, 10), jax_native.dbscan(pts, 0.2, 10))
 
 
 def test_train_cli_writes_a_run_that_export_reads(tmp_path):
     run = tmp_path / "run"
     cli("train", "--data", "synthetic", "--output-dir", run, "--max-iters", 2,
-        "--train-rays-per-batch", 64, "--sparsity-loss", 0.005)
+        "--train-rays-per-batch", 64, "--sparsity-loss", 0.005, "--device", "cpu")
     manifest = json.loads((run / "manifest.json").read_text())
     assert manifest["config_overrides"] == {"train_rays_per_batch": 64, "sparsity_loss": 0.005}
     assert manifest["grid"]["caps"] == [4096] * 12 + [8192] * 4
@@ -145,7 +157,7 @@ def test_train_cli_writes_a_run_that_export_reads(tmp_path):
     records = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
     assert "final_eval_psnr" in records[-1]
     cli("export", "--load-dir", run, "--output-dir", tmp_path / "export",
-        "--num-points-per-side", 8)
+        "--num-points-per-side", 8, "--device", "cpu")
     assert all(read_ply(tmp_path / "export" / f"{n}.ply")["points"].shape[1] == 3
                for n in ("semantic", "semantic_colormap", "density"))
 
@@ -168,3 +180,38 @@ def test_get_preset_serves_only_the_ported_preset(name, variant):
     assert configs.get_preset("fruit_nerf", 5) == configs.fruit_nerf(5)
     with pytest.raises(NotImplementedError, match="item 12"):
         configs.get_preset(name, 5, variant=variant)
+
+
+@pytest.mark.parametrize("argv", [
+    ["orchard-e2e", *[a for a in TOY if a not in ("--device", "cpu")]],
+    ["train", "--data", "synthetic", "--max-iters", "2"],
+    ["export", "--load-dir", "unused"],
+])
+def test_without_device_a_command_asks_for_the_card(argv, tmp_path):
+    """With no ``--device`` a command runs on the card; where torch finds
+    none it fails with a message that says so, before it writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the command would run on it")
+    out = tmp_path / "out"
+    proc = cli(*argv, "--output-dir", out, check=False)
+    assert proc.returncode != 0
+    assert "finds no CUDA card" in proc.stderr and "--device cpu" in proc.stderr
+    assert not out.exists()
+
+
+IMPORT_ALL = BLOCK + """
+import importlib, pkgutil, fruitnerf_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(fruitnerf_tpu_torch.__path__, "fruitnerf_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules if m == "fruitnerf_tpu" or m.startswith("fruitnerf_tpu."))
+jax = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+print(len(names), loaded, jax)
+assert not loaded and not jax
+"""
+
+
+def test_every_module_imports_without_the_jax_package():
+    proc = cli(script=IMPORT_ALL)
+    count_, loaded, jax = proc.stdout.split(" ", 2)
+    assert int(count_) >= 40 and loaded + " " + jax.strip() == "[] []"

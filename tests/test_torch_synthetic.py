@@ -1,11 +1,14 @@
 """The port's scene renderer (fruitnerf_tpu_torch/data/synthetic.py): the
 torch camera renderer against the JAX package's device renderer on the CPU,
-the numpy/torch branch rule of ``render_scene``, and the scene cache key."""
+the numpy/torch branch rule of ``render_scene``, the scene cache key, and
+the port's copy of the scene and its numpy tracer against the JAX
+package's."""
 import dataclasses
 
 import jax.numpy as jnp  # noqa: F401  (the JAX renderer runs on this process's CPU backend)
 import numpy as np
 import pytest
+import torch
 
 from fruitnerf_tpu.data import synthetic as jsyn
 from fruitnerf_tpu_torch.data import synthetic as syn
@@ -63,7 +66,7 @@ def test_render_scene_branches_at_two_million_pairs(monkeypatch):
     big = dataclasses.replace(small, num_leaves=500, image_size=64, leaf_radius=0.02)
     assert syn.ray_sphere_pairs(big) > syn.NUMPY_MAX_PAIRS
     got = syn.render_scene(big, device="cpu")
-    assert calls == ["cpu"]
+    assert calls == [torch.device("cpu")]
     monkeypatch.setattr(syn, "NUMPY_MAX_PAIRS", 10**9)  # the numpy tracer as the reference
     want = syn.render_scene(big)
     assert set(got) == set(want)
@@ -110,4 +113,33 @@ def test_numpy_fruit_mask_is_the_numpy_tracers():
 
 @pytest.mark.parametrize("name", ["orchard_config", "SyntheticSceneConfig", "fruit_centers"])
 def test_scene_definition_is_the_jax_packages(name):
-    assert getattr(syn, name) is getattr(jsyn, name)
+    """The port's copy defines the same scene: the same config fields and
+    defaults, the same orchard sizing, the same fruit and leaf centers and
+    camera ring."""
+    assert getattr(syn, name) is not getattr(jsyn, name)  # a copy, not an import
+    for kw in ({}, {"num_fruits": 120, "num_cameras": 5, "image_size": 32},
+               {"num_fruits": 781, "camera_elevation": [-0.2, 0.8]}):
+        want = jsyn.orchard_config(**kw)
+        got = syn.orchard_config(**kw)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        for fn in ("fruit_centers", "leaf_centers", "hemisphere_poses"):
+            np.testing.assert_array_equal(getattr(syn, fn)(got), getattr(jsyn, fn)(want),
+                                          err_msg=fn)
+    assert dataclasses.asdict(syn.SyntheticSceneConfig()) == dataclasses.asdict(
+        jsyn.SyntheticSceneConfig())
+
+
+@pytest.mark.parametrize("kw", [{}, {"num_fruits": 10, "num_leaves": 40, "image_size": 40,
+                                     "num_cameras": 3, "seed": 5,
+                                     "camera_elevation": (-0.2, 0.8)}])
+def test_numpy_render_scene_equals_the_jax_packages(kw):
+    """The copied numpy tracer renders the JAX package's images, masks and
+    poses bit for bit."""
+    cfg = dataclasses.replace(syn.SyntheticSceneConfig(image_size=24, num_cameras=2), **kw)
+    assert syn.ray_sphere_pairs(cfg) <= syn.NUMPY_MAX_PAIRS
+    got = syn.render_scene(cfg, device="cpu")
+    want = jsyn.render_scene(jsyn.SyntheticSceneConfig(**dataclasses.asdict(cfg)))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)
+        assert np.asarray(got[k]).dtype == np.asarray(want[k]).dtype, k
