@@ -8,12 +8,14 @@ fruit-counting main path, ``orchard-e2e``, on the bench orchard.
 
     python3 chip_smoke.py [--steps 400] [--seed 0]
     python3 chip_smoke.py --ab-cell-source OTHER/cell_encode.cu [--steps 200]
+    python3 chip_smoke.py --ab-corner-source OTHER/corner_encode.cu [--steps 200]
 
 Phases, each printing its lines:
   card     nvidia-smi's name and power limit; TF32 switched off for matmuls
            and cuDNN
   build    nvcc of fruitnerf_tpu_torch/csrc into fruitnerf_tpu_torch/_build;
-           registers of each kernel
+           registers, shared memory and spills of each kernel (the cell
+           kernels and the corner kernels at F = 2 and 4 must not spill)
   kernels  at P = 4096*48 + 4096 uniform-random points, each kernel pair
            against its plain version: max errors and median times, each
            launch's bound (bytes at 3.35 TB/s or float32 operations at 67
@@ -42,7 +44,9 @@ Phases, each printing its lines:
            in [-1, 1]; steps/s and rays/s (the per-step log syncs the host
            each step; the cell slice does not). Then the manifest, whose grid entry
            must rebuild the layout, and a resume into a fresh state that must
-           equal the trained one and render the held-out camera identically
+           equal the trained one and render the held-out camera identically.
+           The last step's two grid encodings are captured (from
+           grid_encode_flat) and K3/K4 held and timed at them, as K1/K2 are
   orchard  scripts.orchard_e2e.main on the bench orchard (120 fruits, 200
            cameras at 256^2, rendered once, into the scene cache it reads,
            by the torch renderer above the numpy tracer's 2M ray-sphere
@@ -56,8 +60,8 @@ Phases, each printing its lines:
            final step, run zero steps, report null rates and export the
            same clouds
 Then one JSON line of the six kernels (K1/K2's launches summed over the cell
-slice and the orchard phase's counted calls; K1's and K2's entries also
-carry their step-layout numbers, K1's its export-batch ones), the card line,
+slice and the orchard phase's counted calls; the K1-K4 entries also carry
+their step-layout numbers, K1's its export-batch ones), the card line,
 and as the last line {"ok": true, "device": {...}}. It fails if jax or any
 module of the JAX package (fruitnerf_tpu) was imported. Any failure raises
 and exits non-zero; with no CUDA device it exits non-zero before printing
@@ -68,8 +72,11 @@ interface; for example the parent commit's, from git show) apart, runs only
 the card, build and cell slice phases, and times the other K1/K2 ("old")
 against this checkout's ("new") and the plain version in turns (plain, old,
 new, new, old, plain) at random points, at the last step's positions and at
-an export batch, each held to the plain version first; then one JSON line
-of those times and the card line.
+an export batch, each held to the plain version first. --ab-corner-source
+does the same for another corner_encode.cu's K3/K4 after the corner slice,
+at random points and the corner step's positions, at the slice's F = 2
+layout and at the kernel phase's F = 4 layout. Either or both; then one
+JSON line of those times, bounds and yardstick times, and the card line.
 """
 from __future__ import annotations
 
@@ -78,6 +85,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -143,6 +151,57 @@ def median_ms(fn, iters: int = 30, warmup: int = 3) -> float:
 TPU = "fruitnerf_tpu/ops/pallas/hash_grid.py"
 CELL_SRC = "fruitnerf_tpu_torch/csrc/cell_encode.cu"
 CORNER_SRC = "fruitnerf_tpu_torch/csrc/corner_encode.cu"
+CORNER_F4 = ((8, 64, 1024, 2048), 4096)  # the kernel phase's small F = 4 corner layout
+
+
+def _kernel_name(mangled: str) -> str:
+    """``_Z24corner_encode_bwd_kernelILi2EEv...`` -> ``corner_encode_bwd_kernel<2>``."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if m is None:
+        return mangled
+    rest = mangled[m.end():]
+    name, rest = rest[: int(m.group(1))], rest[int(m.group(1)):]
+    f = re.match(r"ILi(\d+)E", rest)
+    return f"{name}<{f.group(1)}>" if f else name
+
+
+def kernel_resources(log: str) -> list[dict]:
+    """Each kernel's registers, static shared memory (the corner kernels
+    size theirs at launch) and spills, from nvcc's ``-Xptxas -v`` output."""
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            out.append({"name": _kernel_name(m.group(1)), "registers": None, "smem": 0,
+                        "spill_stores": 0, "spill_loads": 0})
+        elif out:
+            k = out[-1]
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                k["spill_stores"], k["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                k["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            if m:
+                k["smem"] = int(m.group(1))
+    return out
+
+
+def build_phase(hg) -> list[dict]:
+    """Build the kernels and print each one's resources; the cell kernels
+    and the corner kernels at F = 2 and F = 4 must not spill."""
+    info = hg.build_kernels()
+    kernels = kernel_resources(info.log)
+    print(f"build: {info.seconds:.2f} s -> {info.path.parent.name}; {len(kernels)} kernels")
+    for k in kernels:
+        print(f"build: {k['name']}: {k['registers']} registers, {k['smem']} bytes static smem, "
+              f"spill stores {k['spill_stores']} B, loads {k['spill_loads']} B")
+    check(len(kernels) > 0, "nvcc's log names no kernel")
+    for k in kernels:
+        if "<" not in k["name"] or k["name"].endswith(("<2>", "<4>")):
+            check(k["spill_stores"] == k["spill_loads"] == 0, f"{k['name']} spills registers")
+    return kernels
 
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
@@ -239,18 +298,21 @@ def library_pair(hg, table, pos, grad, layout, corner: bool):
     """The yardstick: one ``F.embedding_bag(mode="sum",
     per_sample_weights=w)`` call on ``bag_inputs``, made here, outside the
     timed calls. It leaves out the index math and dPositions. ->
-    (forward(), its autograd dTable backward())."""
+    (forward(), its autograd dTable backward(), None without ``grad``)."""
     import torch.nn.functional as F
 
     p = pos.shape[0]
     idx, w = bag_inputs(hg, pos, layout, corner)
     weight = table if corner else table.view(-1, 2)
-    leaf = weight.detach().clone().requires_grad_(True)
-    out_graph = F.embedding_bag(idx, leaf, mode="sum", per_sample_weights=w)
-    g = grad.reshape(out_graph.shape)
 
     def forward():
         return F.embedding_bag(idx, weight, mode="sum", per_sample_weights=w).view(p, -1)
+
+    if grad is None:
+        return forward, None
+    leaf = weight.detach().clone().requires_grad_(True)
+    out_graph = F.embedding_bag(idx, leaf, mode="sum", per_sample_weights=w)
+    g = grad.reshape(out_graph.shape)
 
     def backward():
         return torch.autograd.grad(out_graph, leaf, g, retain_graph=True)[0].view(table.shape)
@@ -365,6 +427,20 @@ def cell_pair(hg, layout, label, table, pos, grad) -> dict:
     )
 
 
+def corner_pair(hg, layout, feats, label, table, pos, grad) -> dict:
+    """K3/K4 at ``layout`` with ``feats`` features a level on these inputs,
+    with the yardstick and bounds."""
+    return hold_pair(
+        label,
+        lambda t, p: hg.corner_encode_fwd_cuda(t, p, layout, feats),
+        lambda t, p, gr: hg.corner_encode_bwd_cuda(t, p, gr, layout, feats, True),
+        lambda t, p: hg.grid_encode_corner_torch(t, p, layout, feats),
+        table, pos, grad,
+        library=library_pair(hg, table, pos, grad, layout, corner=True),
+        cost=work(hg, pos, layout, feats, corner=True),
+    )
+
+
 def kernel_phase(hg, cell_layout, corner_grid, dev, seed: int) -> list[dict]:
     """Every kernel at the shapes its path gives it, against its plain
     version: K1/K2 at the cell slice's layout, K3/K4 at the corner slice's
@@ -380,23 +456,15 @@ def kernel_phase(hg, cell_layout, corner_grid, dev, seed: int) -> list[dict]:
     )
 
     def corner(layout, feats, label):
-        table, pos, grad = _inputs(dev, g, layout.total_rows, feats, feats * layout.num_levels)
-        return hold_pair(
-            label,
-            lambda t, p: hg.corner_encode_fwd_cuda(t, p, layout, feats),
-            lambda t, p, gr: hg.corner_encode_bwd_cuda(t, p, gr, layout, feats, True),
-            lambda t, p: hg.grid_encode_corner_torch(t, p, layout, feats),
-            table, pos, grad,
-            library=library_pair(hg, table, pos, grad, layout, corner=True),
-            cost=work(hg, pos, layout, feats, corner=True),
-        )
+        inputs = _inputs(dev, g, layout.total_rows, feats, feats * layout.num_levels)
+        return corner_pair(hg, layout, feats, label, *inputs)
 
     f = corner_grid.features_per_level
     layout = corner_grid.table_layout()
     k34 = corner(layout, f, f"K3/K4 corner ({layout.num_levels} levels, T={layout.rows[0]}, "
                             f"F={f}, direct {sum(layout.direct)})")
-    small = hg.corner_layout((8, 64, 1024, 2048), 4096)
-    corner(small, 4, "K3/K4 corner (4 levels, T=4096, F=4)")
+    corner(hg.corner_layout(*CORNER_F4), 4,
+           f"K3/K4 corner ({len(CORNER_F4[0])} levels, T={CORNER_F4[1]}, F=4)")
 
     res, t_v1 = corner_grid.level_resolutions(), corner_grid.table_size
     v1 = hg.uniform_cell_layout(res, t_v1)
@@ -450,8 +518,6 @@ def export_batch(dev):
 def export_k1(hg, layout, dev, g) -> dict:
     """K1 alone at the export's batch (``export_batch``) against the plain
     version, with the yardstick and the bound."""
-    import torch.nn.functional as F
-
     pos, inside = export_batch(dev)
     table = torch.rand((layout.total_rows, 16), generator=g, device=dev) * 2.0 - 1.0
     ref = hg.cell_encode_torch(table, pos, layout)
@@ -464,12 +530,8 @@ def export_k1(hg, layout, dev, g) -> dict:
     cost = work(hg, pos, layout, 2, corner=False)["fwd"]
     ms = median_ms(lambda: hg.cell_encode_fwd_cuda(table, pos, layout), iters=10)
     plain_ms = median_ms(lambda: hg.cell_encode_torch(table, pos, layout), iters=10)
-    idx, w = bag_inputs(hg, pos, layout, corner=False)
-
-    def lib_fwd():
-        return F.embedding_bag(idx, table.view(-1, 2), mode="sum", per_sample_weights=w)
-
-    lib_err = (lib_fwd().view(ref.shape) - ref).abs().max().item()
+    lib_fwd, _ = library_pair(hg, table, pos, None, layout, corner=False)
+    lib_err = (lib_fwd() - ref).abs().max().item()
     check(lib_err <= FWD_ATOL, f"the export-batch yardstick differs by {lib_err}")
     lib_ms = median_ms(lib_fwd, iters=10)
     print(f"kernels: K1 at an export batch {ms:.4f} ms, plain {plain_ms:.4f} ms, embedding_bag "
@@ -480,17 +542,18 @@ def export_k1(hg, layout, dev, g) -> dict:
             "export_bound_by": cost["bound_by"], "export_library_ms": lib_ms}
 
 
-def step_layout_k12(hg, layout, captured: list, dev, seed: int) -> dict:
-    """K1/K2 at the positions one train step gives them, captured from the
-    cell slice's last step: the fine samples (ray-major, 48 consecutive
+def step_layout(pair, layout, row_width: int, out_dim: int, captured: list, dev, seed: int,
+                label: str) -> dict:
+    """A kernel pair (``pair(table, pos, grad, label)``: ``cell_pair`` or
+    ``corner_pair``) at the positions one train step gives it, captured
+    from a slice's last step: the fine samples (ray-major, 48 consecutive
     samples a ray) and the sparsity points, each its own launch, as the
     step launches them; random table and output gradient."""
     g = torch.Generator(device=dev).manual_seed(seed + 1)
     out = {}
     for name, pos in zip(("fine", "sparsity"), captured):
-        table, pos, grad = _inputs(dev, g, layout.total_rows, 16, 2 * layout.num_levels, pos=pos)
-        r = cell_pair(hg, layout, f"K1/K2 at the step's {name} points, P={pos.shape[0]}",
-                      table, pos, grad)
+        table, pos, grad = _inputs(dev, g, layout.total_rows, row_width, out_dim, pos=pos)
+        r = pair(table, pos, grad, f"{label} at the step's {name} points, P={pos.shape[0]}")
         out[name] = {"points": pos.shape[0], **r}
     return out
 
@@ -582,22 +645,25 @@ def parity_phase(scene, dev, seed: int):
 
 
 @contextlib.contextmanager
-def captured_positions(sink: list):
-    """Record a copy of the positions of each grid encoding in the block,
-    as ``fields/encodings.grid_encode`` hands them to ``cell_encode``."""
+def captured_positions(sink: list, entry: str = "cell_encode", when=lambda: True):
+    """Record a copy of the positions that ``fields/encodings.grid_encode``
+    hands to ``entry`` (``cell_encode``, or ``grid_encode_flat`` in corner
+    mode) in the block, at each call made with gradients on while
+    ``when()`` holds."""
     from fruitnerf_tpu_torch.fields import encodings
 
-    real = encodings.cell_encode
+    real = getattr(encodings, entry)
 
-    def spy(table, positions, layout):
-        sink.append(positions.detach().clone())
-        return real(table, positions, layout)
+    def spy(table, positions, *args):
+        if torch.is_grad_enabled() and when():
+            sink.append(positions.detach().clone())
+        return real(table, positions, *args)
 
-    encodings.cell_encode = spy
+    setattr(encodings, entry, spy)
     try:
         yield
     finally:
-        encodings.cell_encode = real
+        setattr(encodings, entry, real)
 
 
 def slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
@@ -696,7 +762,9 @@ LOSS_KEYS = ("total_loss", "rgb_loss", "semantics_loss", "interlevel_loss", "spa
 def corner_slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
     """``train_loop`` on the corner-mode config: log every step, eval and
     checkpoint every 100 steps; then the manifest, and a resume into a
-    fresh state that must equal the trained one."""
+    fresh state that must equal the trained one. Returns the launch counts
+    and the positions of the last step's two grid encodings (fine samples,
+    sparsity points)."""
     from fruitnerf_tpu_torch.bridge import tree_leaves
     from fruitnerf_tpu_torch.data.builder import dataset_from_scene
     from fruitnerf_tpu_torch.engine import checkpoints as ck
@@ -721,11 +789,18 @@ def corner_slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
         writer = MetricWriter(run / "metrics.jsonl", also_print=False)
         gen = torch.Generator(device=dev).manual_seed(seed)
         timings: dict = {}
+        captured, last_step = [], [False]
+
+        def arm(it, state, metrics):  # after step `it`: is the next one the last?
+            last_step[0] = it == steps - 1
+
         hg.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state = train_loop(cfg, data, eval_indices=held, generator=gen, writer=writer,
-                           checkpoint_dir=run / "checkpoints", timings=timings)
+        with captured_positions(captured, "grid_encode_flat", lambda: last_step[0]):
+            state = train_loop(cfg, data, eval_indices=held, generator=gen, writer=writer,
+                               checkpoint_dir=run / "checkpoints", timings=timings,
+                               callbacks=(arm,))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(hg.LAUNCHES)
@@ -752,6 +827,11 @@ def corner_slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
         check(counts["corner_encode_bwd"] >= steps, "a step skipped the corner backward kernel")
         check(counts["cell_encode_fwd"] == counts["cell_encode_bwd"] == 0,
               "the corner path launched a cell kernel")
+        shapes = [tuple(c.shape) for c in captured]
+        samples = rays * cfg.model.num_nerf_samples
+        print(f"corner: the last step encoded {shapes} points")
+        check(shapes == [(samples, 3), (cfg.model.sparsity_num_points, 3)],
+              f"the last step's grid encodings took {shapes} points")
         check(len(evals) == steps // 100, f"{len(evals)} evals in {steps} steps")
         for r in evals:
             print("corner: eval at step {step}: PSNR {eval_psnr:.3f} dB, SSIM {eval_ssim:.4f}, "
@@ -782,7 +862,7 @@ def corner_slice_phase(scene, dev, steps: int, seed: int, hg, name: str):
               f"resumed at step {restored.step}, {len(pairs)} parameters equal; held-out "
               f"camera {held[0]} render max abs diff {diff:g}")
         check(diff == 0.0, "the restored state renders differently")
-    return counts
+    return counts, captured
 
 
 @contextlib.contextmanager
@@ -915,79 +995,128 @@ def orchard_phase(dev, iters: int, export_n: int, hg, name: str):
     return {k: sum(c[k] for c in runs) for k in ("cell_encode_fwd", "cell_encode_bwd")}
 
 
-def _other_cell_kernels(lib, hg):
-    """Wrappers of another build's cell_encode pair (the same C interface),
-    uncounted: -> (fwd(table, pos, layout), bwd(table, pos, grad, layout))."""
+def _other_kernels(lib, hg, corner: bool):
+    """Wrappers of another build's cell_encode or corner_encode pair (the
+    same C interface), uncounted: -> (fwd(table, pos, layout, f),
+    bwd(table, pos, grad, layout, f)); cell mode has f = 2."""
+    kind = "corner" if corner else "cell"
+
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    def fwd(table, pos, layout):
-        out = torch.empty((pos.shape[0], 2 * layout.num_levels), device=pos.device)
-        err = lib.cell_encode_fwd(pos.data_ptr(), table.data_ptr(), out.data_ptr(), pos.shape[0],
-                                  layout.num_levels, *hg._level_arrays(layout), stream())
-        check(err == 0, f"the other cell_encode_fwd: CUDA error {err}")
+    def fwd(table, pos, layout, f):
+        out = torch.empty((pos.shape[0], f * layout.num_levels), device=pos.device)
+        head = (pos.data_ptr(), table.data_ptr(), out.data_ptr(), pos.shape[0])
+        levels = (layout.num_levels, *hg._level_arrays(layout), stream())
+        err = (lib.corner_encode_fwd(*head, f, *levels) if corner
+               else lib.cell_encode_fwd(*head, *levels))
+        check(err == 0, f"the other {kind}_encode_fwd: CUDA error {err}")
         return out
 
-    def bwd(table, pos, grad, layout):
+    def bwd(table, pos, grad, layout, f):
         dtable, dpos = torch.zeros_like(table), torch.empty_like(pos)
-        err = lib.cell_encode_bwd(pos.data_ptr(), table.data_ptr(), grad.data_ptr(),
-                                  dtable.data_ptr(), dpos.data_ptr(), pos.shape[0], 1,
-                                  layout.num_levels, *hg._level_arrays(layout), stream())
-        check(err == 0, f"the other cell_encode_bwd: CUDA error {err}")
+        head = (pos.data_ptr(), table.data_ptr(), grad.data_ptr(), dtable.data_ptr(),
+                dpos.data_ptr(), pos.shape[0])
+        levels = (layout.num_levels, *hg._level_arrays(layout), stream())
+        err = (lib.corner_encode_bwd(*head, f, 1, *levels) if corner
+               else lib.cell_encode_bwd(*head, 1, *levels))
+        check(err == 0, f"the other {kind}_encode_bwd: CUDA error {err}")
         return dtable, dpos
 
     return fwd, bwd
 
 
-def ab_phase(hg, old_source: Path, layout, captured: list, dev, seed: int) -> dict:
-    """K1/K2 of this checkout ("new") against another ``cell_encode.cu``
-    ("old", built apart) and the plain version, in turns plain, old, new,
-    new, old, plain, at uniform-random points, at the step's fine and
-    sparsity points and (K1 alone) at an export batch. Each is held to the
-    plain version first."""
-    lib, info = hg.build_library([old_source], Path(hg._BUILD) / "ab")
-    print(f"ab: {old_source} built in {info.seconds:.2f} s")
-    old_fwd, old_bwd = _other_cell_kernels(lib, hg)
+def _this_kernels(hg, corner: bool):
+    """This checkout's plain version and kernels in ``_other_kernels``'
+    signatures: -> (plain, fwd, bwd)."""
+    if corner:
+        return (hg.grid_encode_corner_torch, hg.corner_encode_fwd_cuda,
+                lambda t, p, gr, layout, f: hg.corner_encode_bwd_cuda(t, p, gr, layout, f, True))
+    return (lambda t, p, layout, f: hg.cell_encode_torch(t, p, layout),
+            lambda t, p, layout, f: hg.cell_encode_fwd_cuda(t, p, layout),
+            lambda t, p, gr, layout, f: hg.cell_encode_bwd_cuda(t, p, gr, layout, True))
+
+
+def cell_ab_cases(layout, captured: list, dev, seed: int) -> dict:
+    """K1/K2's A/B inputs: uniform-random points, the cell step's fine and
+    sparsity points, and (K1 alone) an export batch."""
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     rows, nl = layout.total_rows, layout.num_levels
-    sets = {"random": _inputs(dev, g, rows, 16, 2 * nl)}
+    cases = {"random": (layout, 2, *_inputs(dev, g, rows, 16, 2 * nl))}
     for name, pos in zip(("step_fine", "step_sparsity"), captured):
-        sets[name] = _inputs(dev, g, rows, 16, 2 * nl, pos=pos)
+        cases[name] = (layout, 2, *_inputs(dev, g, rows, 16, 2 * nl, pos=pos))
     export_pos, _ = export_batch(dev)
-    sets["export"] = (torch.rand((rows, 16), generator=g, device=dev) * 2.0 - 1.0, export_pos, None)
+    table = torch.rand((rows, 16), generator=g, device=dev) * 2.0 - 1.0
+    cases["export"] = (layout, 2, table, export_pos, None)
+    return cases
+
+
+def corner_ab_cases(hg, grid, captured: list, dev, seed: int) -> dict:
+    """K3/K4's A/B inputs: uniform-random points and the corner step's fine
+    and sparsity points, at the corner slice's layout (F = 2) and at the
+    kernel phase's F = 4 layout."""
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    cases = {}
+    for layout, f in ((grid.table_layout(), grid.features_per_level),
+                      (hg.corner_layout(*CORNER_F4), 4)):
+        rows, width = layout.total_rows, f * layout.num_levels
+        cases[f"random_f{f}"] = (layout, f, *_inputs(dev, g, rows, f, width))
+        for name, pos in zip(("step_fine", "step_sparsity"), captured):
+            cases[f"{name}_f{f}"] = (layout, f, *_inputs(dev, g, rows, f, width, pos=pos))
+    return cases
+
+
+def ab_phase(hg, old_source: Path, corner: bool, cases: dict) -> dict:
+    """A kernel pair of this checkout ("new") against another build of the
+    same source ("old", built apart) and the plain version, in turns plain,
+    old, new, new, old, plain, on each case (name -> (layout, F, table,
+    positions, output gradient, or None to time the forward alone)). Each
+    is held to the plain version first; each case also carries its bounds
+    and the ``embedding_bag`` yardstick's times."""
+    lib, info = hg.build_library([old_source], Path(hg._BUILD) / "ab")
+    print(f"ab: {old_source} built in {info.seconds:.2f} s")
+    old_fwd, old_bwd = _other_kernels(lib, hg, corner)
+    plain, new_fwd, new_bwd = _this_kernels(hg, corner)
     results = {}
-    for name, (table, pos, grad) in sets.items():
-        iters = 10 if name == "export" else 30
-        fns = {"fwd": {"plain": lambda: hg.cell_encode_torch(table, pos, layout),
-                       "old": lambda: old_fwd(table, pos, layout),
-                       "new": lambda: hg.cell_encode_fwd_cuda(table, pos, layout)}}
+    for name, (layout, f, table, pos, grad) in cases.items():
+        iters = 10 if pos.shape[0] > P_SLICE else 30
+        fns = {"fwd": {"plain": lambda: plain(table, pos, layout, f),
+                       "old": lambda: old_fwd(table, pos, layout, f),
+                       "new": lambda: new_fwd(table, pos, layout, f)}}
         ref = fns["fwd"]["plain"]()
         errs = {"fwd_old": (fns["fwd"]["old"]() - ref).abs().max().item(),
                 "fwd_new": (fns["fwd"]["new"]() - ref).abs().max().item()}
+        lib_fwd, lib_bwd = library_pair(hg, table, pos, grad, layout, corner)
+        errs["fwd_library"] = (lib_fwd() - ref).abs().max().item()
         if grad is not None:
             t_ = table.clone().requires_grad_(True)
             p_ = pos.clone().requires_grad_(True)
-            plain_out = hg.cell_encode_torch(t_, p_, layout)
+            plain_out = plain(t_, p_, layout, f)
             fns["bwd"] = {
                 "plain": lambda: torch.autograd.grad(plain_out, (t_, p_), grad, retain_graph=True),
-                "old": lambda: old_bwd(table, pos, grad, layout),
-                "new": lambda: hg.cell_encode_bwd_cuda(table, pos, grad, layout, True)}
+                "old": lambda: old_bwd(table, pos, grad, layout, f),
+                "new": lambda: new_bwd(table, pos, grad, layout, f)}
             dt_p, dp_p = fns["bwd"]["plain"]()
             for side in ("old", "new"):
                 dt, dp = fns["bwd"][side]()
                 errs[f"bwd_{side}"] = max(((dt - dt_p).abs().max() / dt_p.abs().max()).item(),
                                           ((dp - dp_p).abs().max() / dp_p.abs().max()).item())
-        print(f"ab: {name} P={pos.shape[0]} errors {errs}")
+            errs["bwd_library"] = ((lib_bwd() - dt_p).abs().max() / dt_p.abs().max()).item()
+        print(f"ab: {name} P={pos.shape[0]} F={f} errors {errs}")
         for k, e in errs.items():
             check(e <= (FWD_ATOL if k.startswith("fwd") else BWD_RTOL), f"ab {name} {k}: {e}")
-        row = {"points": pos.shape[0], "errors": errs}
+        cost = work(hg, pos, layout, f, corner)
+        row = {"points": pos.shape[0], "features": f, "errors": errs}
         for d, sides in fns.items():
             times = {"plain": [], "old": [], "new": []}
             for side in ("plain", "old", "new", "new", "old", "plain"):
                 times[side].append(median_ms(sides[side], iters=iters))
-            row[d] = times
+            lib_ms = median_ms(lib_fwd if d == "fwd" else lib_bwd, iters=iters)
+            row[d] = {**times, "library": lib_ms, "bound": cost[d]["bound_ms"],
+                      "bound_by": cost[d]["bound_by"]}
             print(f"ab: {name} {d} ms (median of {iters}) plain {times['plain']} old "
-                  f"{times['old']} new {times['new']}")
+                  f"{times['old']} new {times['new']}; embedding_bag {lib_ms:.4f}, bound "
+                  f"{cost[d]['bound_ms']:.4f} ({cost[d]['bound_by']})")
         results[name] = row
     return results
 
@@ -1000,6 +1129,10 @@ def main(argv=None) -> int:
                     help="another cell_encode.cu (for example the parent commit's): run only "
                          "the cell slice, to capture a step's positions, and time its K1/K2 "
                          "against this checkout's")
+    ap.add_argument("--ab-corner-source", type=Path, default=None,
+                    help="another corner_encode.cu (for example the parent commit's): run only "
+                         "the corner slice, to capture a step's positions, and time its K3/K4 "
+                         "against this checkout's (with --ab-cell-source, both)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
@@ -1018,36 +1151,48 @@ def main(argv=None) -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    info = hg.build_kernels()
-    regs = [ln.strip() for ln in info.log.splitlines() if "registers" in ln]
-    print(f"build: {info.seconds:.2f} s -> {info.path.parent.name}; {len(regs)} kernels")
-    for ln in regs:
-        print(f"build: {ln}")
+    build_phase(hg)
     cell_layout = fruit_nerf(1).model.field.grid.cell_layout()
     scene = render_scene(SyntheticSceneConfig(image_size=128, num_cameras=24, seed=args.seed),
                          device=dev)
 
-    if args.ab_cell_source is not None:
-        _, captured = slice_phase(scene, dev, args.steps, args.seed, hg, name)
-        ab = ab_phase(hg, args.ab_cell_source, cell_layout, captured, dev, args.seed)
+    corner_grid = corner_config(1).model.field.grid
+    if args.ab_cell_source is not None or args.ab_corner_source is not None:
+        ab = {}
+        if args.ab_cell_source is not None:
+            _, captured = slice_phase(scene, dev, args.steps, args.seed, hg, name)
+            ab["cell"] = ab_phase(hg, args.ab_cell_source, False,
+                                  cell_ab_cases(cell_layout, captured, dev, args.seed))
+        if args.ab_corner_source is not None:
+            _, captured = corner_slice_phase(scene, dev, args.steps, args.seed, hg, name)
+            ab["corner"] = ab_phase(hg, args.ab_corner_source, True,
+                                    corner_ab_cases(hg, corner_grid, captured, dev, args.seed))
         print(json.dumps({"ab": ab}))
         print(card)
         return 0
 
-    kernels = kernel_phase(hg, cell_layout, corner_config(1).model.field.grid, dev, args.seed)
+    kernels = kernel_phase(hg, cell_layout, corner_grid, dev, args.seed)
     parity_phase(scene, dev, args.seed)
     cell_counts, captured = slice_phase(scene, dev, args.steps, args.seed, hg, name)
-    step = step_layout_k12(hg, cell_layout, captured, dev, args.seed)
-    corner_counts = corner_slice_phase(scene, dev, args.steps, args.seed, hg, name)
+    step12 = step_layout(lambda t, p, gr, label: cell_pair(hg, cell_layout, label, t, p, gr),
+                         cell_layout, 16, 2 * cell_layout.num_levels, captured, dev, args.seed,
+                         "K1/K2")
+    corner_counts, captured = corner_slice_phase(scene, dev, args.steps, args.seed, hg, name)
+    corner_layout, f = corner_grid.table_layout(), corner_grid.features_per_level
+    step34 = step_layout(
+        lambda t, p, gr, label: corner_pair(hg, corner_layout, f, label, t, p, gr),
+        corner_layout, f, f * corner_layout.num_levels, captured, dev, args.seed, "K3/K4")
     orchard_counts = orchard_phase(dev, ORCHARD_ITERS, EXPORT_N, hg, name)
     for k in kernels:  # K5/K6's launches were counted on their own path, in the kernel phase
         if k["name"].startswith("corner_encode"):
             k["launches"] = corner_counts[k["name"]]
         elif k["name"].startswith("cell_encode"):
             k["launches"] = cell_counts[k["name"]] + orchard_counts[k["name"]]
-    for k, d in zip(kernels[:2], ("fwd", "bwd")):  # K1, K2 at the step's layout
-        k["step"] = {name: {"points": r["points"], **_fields(r, d)} for name, r in step.items()}
-        k["max_abs_err"] = max(k["max_abs_err"], *(r["max_abs_err"] for r in k["step"].values()))
+    # K1/K2 and K3/K4 at their step's positions
+    for pair, step in ((kernels[0:2], step12), (kernels[2:4], step34)):
+        for k, d in zip(pair, ("fwd", "bwd")):
+            k["step"] = {at: {"points": r["points"], **_fields(r, d)} for at, r in step.items()}
+            k["max_abs_err"] = max(k["max_abs_err"], *(r["max_abs_err"] for r in k["step"].values()))
     check("jax" not in sys.modules, "the port imported jax")
     jax_package = sorted(m for m in sys.modules
                          if m == "fruitnerf_tpu" or m.startswith("fruitnerf_tpu."))

@@ -340,7 +340,8 @@ def _level_arrays(layout: CellLayout):
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device, align: int = 4):
     """The cell kernels read the table as float4 (16-byte aligned); the
-    corner kernels read table rows as float2 or float4 where F is 2 or 4."""
+    corner kernels read table rows as float2 or float4 where F is 2, 4 or
+    8, and add dTable rows with vector atomics there."""
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != torch.float32:

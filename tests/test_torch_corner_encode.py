@@ -1,9 +1,10 @@
 """The port's flat grid entry (fruitnerf_tpu_torch/ops/hash_grid.py:
 grid_encode_flat) against the JAX package's: corner mode (Pallas kernels
 K3/K4, interpret mode on the CPU, and the ``grid_encode_ref`` oracle) and the
-cell-v1 route (K5/K6 and ``grid_encode_cell_ref``), forward and gradients;
-and the bridge's conversions of both table layouts. Compute dtype float32 on
-both sides."""
+cell-v1 route (K5/K6 and ``grid_encode_cell_ref``), forward and gradients,
+at uniform-random and ray-ordered points and F = 1, 2, 4 and 8; and the
+bridge's conversions of both table layouts. Compute dtype float32 on both
+sides."""
 
 import jax
 import jax.numpy as jnp
@@ -54,7 +55,7 @@ def test_corner_layout_matches_jax():
     assert layout.rows == (T,) * 4 and layout.offsets == (0, T, 2 * T, 3 * T)
 
 
-@pytest.mark.parametrize("features", [2, 4])
+@pytest.mark.parametrize("features", [1, 2, 4, 8])
 def test_corner_forward_matches_pallas_and_ref(features):
     table, pos = _corner_inputs(features)
     flat = torch.from_numpy(bridge.corner_table_from_jax(table, T, features))
@@ -66,7 +67,7 @@ def test_corner_forward_matches_pallas_and_ref(features):
     np.testing.assert_allclose(out.numpy(), ref, atol=FWD_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("features", [2, 4])
+@pytest.mark.parametrize("features", [1, 2, 4, 8])
 def test_corner_grads_match_pallas(features):
     """dTable and dPositions of sum(sin(out) * out) against jax.grad through
     K3/K4, including a point at z = 1.0 whose +z corners index past the
@@ -82,6 +83,48 @@ def test_corner_grads_match_pallas(features):
     flat = torch.from_numpy(bridge.corner_table_from_jax(table, T, features)).requires_grad_(True)
     p = torch.from_numpy(pos).requires_grad_(True)
     out = thg.grid_encode_flat(flat, p, RES, T, features, "corner")
+    torch.sum(torch.sin(out) * out).backward()
+    _assert_grad_close(flat.grad.numpy(), bridge.corner_table_from_jax(dt_j, T, features))
+    _assert_grad_close(p.grad.numpy(), dp_j)
+
+
+def _ray_ordered_positions(seed, n_rays=8, samples=48):
+    """Consecutive samples along short rays, as a train step orders them:
+    at the coarse levels runs of neighbours share a cell (the runs the CUDA
+    backward merges). Point 3 sits at z = 1.0."""
+    rng = np.random.default_rng(seed)
+    origin = rng.uniform(0.2, 0.8, (n_rays, 1, 3))
+    d = rng.normal(size=(n_rays, 1, 3))
+    t = np.sort(rng.uniform(0.0, 1.0, (n_rays, samples, 1)), axis=1)
+    pos = np.clip(origin + 0.15 * t * d / np.linalg.norm(d, axis=-1, keepdims=True), 0.0, 0.999)
+    pos = pos.reshape(-1, 3).astype(np.float32)
+    pos[3] = (0.5, 0.25, 1.0)
+    return pos
+
+
+@pytest.mark.parametrize("features", [1, 2, 4, 8])
+def test_corner_ray_ordered_matches_pallas(features):
+    """Forward, dTable and dPositions at ray-ordered points against the
+    Pallas kernels (and the forward against ``grid_encode_ref`` away from
+    the point at 1.0, where the oracle gives NaN)."""
+    table, _ = _corner_inputs(features, seed=2)
+    pos = _ray_ordered_positions(features)
+    cells = np.floor(pos * RES[0])
+    assert np.mean(np.all(cells[1:] == cells[:-1], axis=-1)) > 0.5  # runs at level 0
+    flat = torch.from_numpy(bridge.corner_table_from_jax(table, T, features)).requires_grad_(True)
+    p = torch.from_numpy(pos).requires_grad_(True)
+    out = thg.grid_encode_flat(flat, p, RES, T, features, "corner")
+    pallas = np.asarray(_pallas(jnp.asarray(table), jnp.asarray(pos), features))
+    ref = np.asarray(jhg.grid_encode_ref(jnp.asarray(table), jnp.asarray(pos), RES, T, features))
+    np.testing.assert_allclose(out.detach().numpy(), pallas, atol=FWD_ATOL, rtol=0)
+    keep = np.arange(len(pos)) != 3
+    np.testing.assert_allclose(out.detach().numpy()[keep], ref[keep], atol=FWD_ATOL, rtol=0)
+
+    def loss_jax(t, q):
+        o = _pallas(t, q, features)
+        return jnp.sum(jnp.sin(o) * o)
+
+    dt_j, dp_j = jax.grad(loss_jax, argnums=(0, 1))(jnp.asarray(table), jnp.asarray(pos))
     torch.sum(torch.sin(out) * out).backward()
     _assert_grad_close(flat.grad.numpy(), bridge.corner_table_from_jax(dt_j, T, features))
     _assert_grad_close(p.grad.numpy(), dp_j)

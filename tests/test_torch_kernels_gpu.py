@@ -1,13 +1,15 @@
 """The CUDA kernels (cell_encode, corner_encode, and the cell-v1 route of
 grid_encode_flat) against their plain PyTorch versions, on a card: the
-tiled cell kernels also at ray-ordered points, with every point in one
-cell, at 1 to 32 levels and at a P that is no multiple of their tile. Every
+tiled kernels also at ray-ordered points, with every point in one cell
+(and the corner kernels at hash collisions inside a warp and at F = 1 to
+8), at 1 to 32 levels and at a P that is no multiple of their tile. Every
 test here is marked ``gpu`` and skips without one. This file
 imports no JAX, so it runs on the GPU machine, which has none:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
 
 (``--noconftest`` skips tests/conftest.py, which imports JAX.)"""
+import numpy as np
 import pytest
 import torch
 
@@ -172,6 +174,74 @@ def test_corner_kernels_match_plain(dev, features):
     hg.grid_encode_corner_torch(t_, p_, layout, features).backward(grad)
     assert _rel(dt, t_.grad) <= BWD_RTOL
     assert _rel(dp, p_.grad) <= BWD_RTOL
+
+
+def _corner_levels(num_levels):
+    """The corner slice's shape at ``num_levels`` levels: res 16..2048, T =
+    8192 corner entries a level, level 0 direct (17^3 = 4913 entries; at 32
+    levels level 1 too), the finest hashed."""
+    res = [16] if num_levels == 1 else [
+        int(16 * (2048 / 16) ** (l / (num_levels - 1))) for l in range(num_levels)]
+    return hg.corner_layout(res, 8192)
+
+
+def _colliding_cells(res, t):
+    """Two cells at a hashed level (res, T) whose corner-0 entries hash onto
+    one row: -> two int [3] arrays."""
+    cells = np.random.default_rng(res).integers(0, res - 1, (4 * t, 3))
+    c = cells.astype(np.uint64)
+    rows = (c[:, 0] ^ ((c[:, 1] * hg._P1) & hg._MASK32) ^ ((c[:, 2] * hg._P2) & hg._MASK32)) \
+        & (t - 1)
+    first = {}
+    for i, r in enumerate(rows.tolist()):
+        if r in first and (cells[first[r]] != cells[i]).any():
+            return cells[first[r]], cells[i]
+        first.setdefault(r, i)
+    raise AssertionError("no collision among 4T cells")
+
+
+def _corner_points(dev, g, kind, layout, n_rays=64, samples=48, extra=13):
+    """P = 64 x 48 + 13 points (not a multiple of the kernels' 32-point
+    tile), as ``_points`` makes them, and "collision": runs of three points
+    in one finest-level cell, alternating between two cells whose corner-0
+    entries hash onto one row there. Point 5 sits at z = 1.0, past the
+    direct level 0's entries."""
+    if kind != "collision":
+        return _points(dev, g, kind, n_rays, samples, extra)
+    p = n_rays * samples + extra
+    res, t = layout.resolutions[-1], layout.rows[-1]
+    a, b = _colliding_cells(res, t)
+    pair = torch.tensor(np.stack([a, b]), dtype=torch.float32, device=dev)
+    cell = pair[(torch.arange(p, device=dev) // 3) % 2]
+    pos = (cell + 0.1 + 0.8 * torch.rand((p, 3), generator=g, device=dev)) / res
+    pos[5] = torch.tensor([0.5, 0.5, 1.0])
+    return pos.contiguous()
+
+
+@pytest.mark.parametrize("features", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("num_levels", [1, 5, 16, 32])
+@pytest.mark.parametrize("kind", ["ray_ordered", "one_cell", "collision"])
+def test_tiled_corner_kernels_match_plain(dev, kind, num_levels, features):
+    """The tiled K3/K4 (a warp a level, a lane a point, runs of lanes in one
+    cell merged into vector atomics) against the plain version, with and
+    without dPositions."""
+    layout = _corner_levels(num_levels)
+    assert layout.direct[0] and (num_levels == 1 or not layout.direct[-1])
+    g = torch.Generator(device=dev).manual_seed(100 * num_levels + features)
+    table = torch.rand((layout.total_rows, features), generator=g, device=dev) * 2 - 1
+    pos = _corner_points(dev, g, kind, layout)
+    assert pos.shape[0] % 32 != 0
+    grad = torch.randn((pos.shape[0], features * num_levels), generator=g, device=dev)
+    out = hg.corner_encode_fwd_cuda(table, pos, layout, features)
+    ref = hg.grid_encode_corner_torch(table, pos, layout, features)
+    torch.testing.assert_close(out, ref, atol=FWD_ATOL, rtol=0)
+    t_ = table.clone().requires_grad_(True)
+    p_ = pos.clone().requires_grad_(True)
+    hg.grid_encode_corner_torch(t_, p_, layout, features).backward(grad)
+    dt, dp = hg.corner_encode_bwd_cuda(table, pos, grad, layout, features, True)
+    assert _rel(dt, t_.grad) <= BWD_RTOL and _rel(dp, p_.grad) <= BWD_RTOL
+    dt_only, none = hg.corner_encode_bwd_cuda(table, pos, grad, layout, features, False)
+    assert none is None and _rel(dt_only, t_.grad) <= BWD_RTOL
 
 
 def test_corner_autograd_function_and_launch_counts(dev):
