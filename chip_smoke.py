@@ -4,7 +4,9 @@ this checkout, hold each against its plain PyTorch version, train the
 full-width ``fruit_nerf`` grid preset (cell mode, by hand) and its corner-mode
 grid (through ``train_loop``, with evals and checkpoints) for a few hundred
 steps each on a synthetic scene, and resume and render; then run the
-fruit-counting main path, ``orchard-e2e``, on the bench orchard.
+fruit-counting main path, ``orchard-e2e``, on the bench orchard, with the
+grid variant and with the parity variant (the reference's hash-grid
+network), and train the smoke preset through the ``train`` entry point.
 
     python3 chip_smoke.py [--steps 400] [--seed 0]
     python3 chip_smoke.py --ab-cell-source OTHER/cell_encode.cu [--steps 200]
@@ -58,17 +60,37 @@ Phases, each printing its lines:
            (one a batch), a non-empty density cloud, finite eval stats; then
            a second call on the same directory, which must resume at the
            final step, run zero steps, report null rates and export the
-           same clouds
+           same clouds. The logged losses must be finite and the train PSNR
+           rise
+  hash     K3/K4 at the parity variant's three hash layouts (the main
+           field's 16 levels x 2^19 entries, a 64 MiB table; two 5-level
+           2^17-entry proposal fields) at uniform-random points: P_SLICE for
+           the main field, a step's proposal samples (1,048,576 and 393,216)
+           for the others, with bounds and yardstick
+  orchard parity
+           the orchard phase with --variant parity for PARITY_ITERS steps:
+           K3/K4 launches in train_loop and in export must equal what the
+           config predicts (predicted_hash_launches); the last step's four
+           hash encodings are captured and K3/K4 held and timed at them
+  smoke    scripts.train.main --preset fruit_nerf_smoke --data synthetic
+           --max-iters SMOKE_ITERS: finite losses, train PSNR rising, a
+           final eval, K3/K4 launches as predicted; then two runs of
+           REPEAT_STEPS steps from one seed on the same draws
+           (scripts/step_bench.py:two_runs), which must be bitwise equal in
+           every loss and parameter
 Then one JSON line of the six kernels (K1/K2's launches summed over the cell
-slice and the orchard phase's counted calls; the K1-K4 entries also carry
-their step-layout numbers, K1's its export-batch ones), the card line,
+slice and the orchard phase's counted calls, K3/K4's over the corner slice,
+the parity orchard and the smoke run; the K1-K4 entries also carry their
+step-layout numbers, K1's its export-batch ones, K3/K4's the parity
+layouts' at random points and at the parity step's), the card line,
 and as the last line {"ok": true, "device": {...}}. It fails if jax or any
 module of the JAX package (fruitnerf_tpu) was imported. Any failure raises
 and exits non-zero; with no CUDA device it exits non-zero before printing
 any result.
 
-With --ab-cell-source it builds that other cell_encode.cu (the same C
-interface; for example the parent commit's, from git show) apart, runs only
+With --ab-cell-source it builds that other cell_encode.cu (for example the
+parent commit's, from git show; its backward may take the work buffer or,
+as before the fixed-point sums, a zeroed dTable) apart, runs only
 the card, build and cell slice phases, and times the other K1/K2 ("old")
 against this checkout's ("new") and the plain version in turns (plain, old,
 new, new, old, plain) at random points, at the last step's positions and at
@@ -81,6 +103,7 @@ JSON line of those times, bounds and yardstick times, and the card line.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -102,6 +125,7 @@ GRAD_RTOL = 1e-3  # its gradients, relative to each one's max magnitude
 P_SLICE = 4096 * 48 + 4096  # fine samples plus sparsity points of one step
 ORCHARD_ITERS = 2000  # the orchard phase's steps: a few minutes on the card
 EXPORT_N = 256  # its export's probe grid side: 2^24 probes in 4 batches
+PARITY_ITERS = 1000  # the parity variant's orchard steps
 
 
 class SmokeFailure(RuntimeError):
@@ -890,99 +914,125 @@ def counted_calls(module, attr: str, hg, sink: dict):
 ORCHARD = dict(num_fruits=120, num_cameras=200, image_size=256, seed=7)  # bench.py's orchard
 
 
-def orchard_phase(dev, iters: int, export_n: int, hg, name: str):
+def orchard_phase(dev, iters: int, export_n: int, hg, name: str, variant: str = "grid",
+                  captured=None) -> dict:
     """The fruit-counting main path through its entry point,
-    ``scripts.orchard_e2e.main``, on the bench orchard at full width; then a
-    second call on the same directory, which resumes at the final step.
-    Returns the K1/K2 launches summed over the counted calls of both."""
+    ``scripts.orchard_e2e.main --variant <variant>``, on the bench orchard
+    at full width; then a second call on the same directory, which resumes
+    at the final step. The grid variant's call first renders the scene into
+    the cache both calls read. ``captured`` (a sink, for the parity
+    variant) receives the positions of every hash encoding made with
+    gradients on. Returns the launches summed over the counted calls of
+    both: K1/K2 on the grid variant, K3/K4 on the parity variant, each held
+    to what the config predicts on the latter."""
     from fruitnerf_tpu_torch.data import synthetic
     from fruitnerf_tpu_torch.engine import trainer
     from fruitnerf_tpu_torch.export import volume_sampler as vs
     from fruitnerf_tpu_torch.scripts import count, orchard_e2e
 
+    tag = "orchard" if variant == "grid" else f"orchard {variant}"
     lib = count.native_library()
     check(lib is not None,
           "the native counting library did not build or load (g++ needed); large clouds "
           "would reach the JAX-only device DBSCAN")
-    print(f"orchard: native counting library {lib.name} loaded")
+    print(f"{tag}: native counting library {lib.name} loaded")
 
     cfg_scene = synthetic.orchard_config(**ORCHARD)
-    pairs = synthetic.ray_sphere_pairs(cfg_scene)
-    check(pairs > synthetic.NUMPY_MAX_PAIRS, f"{pairs} ray-sphere pairs take the numpy tracer")
-    # render afresh, through the torch renderer, into the cache orchard_e2e.main reads
-    cache = synthetic.scene_cache_path(cfg_scene)
-    cache.unlink(missing_ok=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    scene = synthetic.cached_render_scene(cfg_scene, device=dev)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    check(cache.exists(), f"the scene was not cached at {cache}")
-    mask_np = synthetic.numpy_fruit_mask(cfg_scene, scene["poses"][0])
-    flips = float(np.mean(mask_np != (scene["masks"][0] > 0.5)))
-    print(f"orchard: scene {cfg_scene.num_fruits} fruits + {cfg_scene.num_leaves} leaves, "
-          f"{len(scene['poses'])} cameras at {cfg_scene.image_size}^2 ({pairs} ray-sphere pairs "
-          f"a camera) rendered by the torch renderer and cached in {dt:.3f} s; camera 0's fruit "
-          f"mask differs from the numpy tracer's on {flips:.2e} of its pixels (tol 2e-3)")
-    check(flips <= 2e-3, f"the torch renderer's mask differs on {flips} of camera 0")
+    if variant == "grid":
+        pairs = synthetic.ray_sphere_pairs(cfg_scene)
+        check(pairs > synthetic.NUMPY_MAX_PAIRS, f"{pairs} ray-sphere pairs take the numpy tracer")
+        # render afresh, through the torch renderer, into the cache orchard_e2e.main reads
+        cache = synthetic.scene_cache_path(cfg_scene)
+        cache.unlink(missing_ok=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene = synthetic.cached_render_scene(cfg_scene, device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(cache.exists(), f"the scene was not cached at {cache}")
+        mask_np = synthetic.numpy_fruit_mask(cfg_scene, scene["poses"][0])
+        flips = float(np.mean(mask_np != (scene["masks"][0] > 0.5)))
+        print(f"orchard: scene {cfg_scene.num_fruits} fruits + {cfg_scene.num_leaves} leaves, "
+              f"{len(scene['poses'])} cameras at {cfg_scene.image_size}^2 ({pairs} ray-sphere "
+              f"pairs a camera) rendered by the torch renderer and cached in {dt:.3f} s; camera "
+              f"0's fruit mask differs from the numpy tracer's on {flips:.2e} of its pixels "
+              f"(tol 2e-3)")
+        check(flips <= 2e-3, f"the torch renderer's mask differs on {flips} of camera 0")
 
     parser = argparse.ArgumentParser()
     orchard_e2e.add_args(parser)
+    spy = (contextlib.nullcontext() if captured is None
+           else captured_positions(captured, "grid_encode_flat"))
     with tempfile.TemporaryDirectory() as run_dir:
         args = parser.parse_args([
             "--num-fruits", str(ORCHARD["num_fruits"]), "--num-cameras", str(ORCHARD["num_cameras"]),
             "--image-size", str(ORCHARD["image_size"]), "--seed", str(ORCHARD["seed"]),
             "--iters", str(iters), "--sparsity-loss", "0.005", "--export-n", str(export_n),
-            "--output-dir", run_dir,
+            "--variant", variant, "--output-dir", run_dir,
         ])
         reports, counts = [], {}
         for call in range(2):
             with counted_calls(trainer, "train_loop", hg, counts), \
-                    counted_calls(vs, "sample_volume", hg, counts):
+                    counted_calls(vs, "sample_volume", hg, counts), \
+                    (spy if call == 0 else contextlib.nullcontext()):
                 reports.append(orchard_e2e.main(args))
         first, second = reports
+        log = [json.loads(x) for x in (Path(run_dir) / "metrics.jsonl").read_text().splitlines()]
     batches = math.ceil(export_n**2 / vs.rays_per_batch(vs.ExportConfig(num_points_per_side=export_n)))
 
     steps = first["steps_run"]
     rays = first["train_rays_per_sec_train_only"]
     check(first["device"] == second["device"] == name,
           f"the reports name {first['device']!r} and {second['device']!r}, not {name!r}")
-    print(f"orchard: reports taken on {first['device']}; scene {first['render_scene_s']:.3f} s "
+    print(f"{tag}: reports taken on {first['device']}; scene {first['render_scene_s']:.3f} s "
           f"in orchard_e2e.main (its cache); "
           f"train {steps} steps: {rays / 4096:.3f} steps/s = {rays:.1f} rays/s over train_s "
           f"{first['loop_timings']['train_s']:.3f} s (overall {first['train_rays_per_sec']:.1f} "
           f"rays/s over {first['train_s']:.3f} s with evals and saves) on {name}")
     check(steps == iters, f"ran {steps} steps of {iters}")
+    train = [r for r in log if "total_loss" in r]
+    print(f"{tag}: train PSNR " + ", ".join(f"{r['psnr']:.3f} dB at {r['step']}" for r in train))
+    check(all(math.isfinite(r[k]) for r in train for k in LOSS_KEYS), "a loss is not finite")
+    check(train[-1]["psnr"] > train[0]["psnr"], f"{tag}: train PSNR did not rise")
     ev = first["eval"]
-    print(f"orchard: eval over the held-out cameras: PSNR {ev['psnr']:.3f} dB, SSIM "
+    print(f"{tag}: eval over the held-out cameras: PSNR {ev['psnr']:.3f} dB, SSIM "
           f"{ev['ssim']:.4f}, IoU {ev['iou']:.4f}, {ev['num_rays_per_sec']:.1f} rays/s "
           f"({first['eval_s']:.3f} s)")
     check(all(math.isfinite(v) for v in ev.values()), f"eval stats not finite: {ev}")
     check(-1.0 <= ev["ssim"] <= 1.0, f"SSIM out of [-1, 1]: {ev['ssim']}")
     train_counts, export_counts = counts["train_loop"][0], counts["sample_volume"][0]
-    print(f"orchard: launches in train_loop ({steps} steps, evals every 500): {train_counts}")
-    check(train_counts["cell_encode_fwd"] >= 2 * steps, "a train step skipped K1")
-    check(train_counts["cell_encode_bwd"] >= steps, "a train step skipped K2")
+    print(f"{tag}: launches in train_loop ({steps} steps, evals every 500): {train_counts}")
+    if variant == "grid":
+        fwd, bwd = "cell_encode_fwd", "cell_encode_bwd"
+        check(train_counts[fwd] >= 2 * steps, "a train step skipped K1")
+        check(train_counts[bwd] >= steps, "a train step skipped K2")
+    else:
+        fwd, bwd = "corner_encode_fwd", "corner_encode_bwd"
+        cfg = parity_config(ORCHARD["num_cameras"], iters)
+        chunks = math.ceil(ORCHARD["image_size"] ** 2 / cfg.eval_rays_per_chunk)
+        want = predicted_hash_launches(cfg, range(iters), iters // cfg.steps_per_eval, chunks)
+        print(f"{tag}: predicted launches in train_loop {want}")
+        check(train_counts == want, "the parity run's launches differ from the prediction")
     pts = first["export_points"]
-    print(f"orchard: export N={export_n} ({export_n**3} probes, {batches} batches) in "
+    print(f"{tag}: export N={export_n} ({export_n**3} probes, {batches} batches) in "
           f"{first['export_s']:.3f} s = {first['export_probes_per_sec']:.1f} probes/s; points "
           f"{pts}; launches {export_counts}")
-    check(export_counts["cell_encode_fwd"] == batches,
-          f"export launched K1 {export_counts['cell_encode_fwd']} times for {batches} batches")
-    check(export_counts["cell_encode_bwd"] == 0, "export launched K2")
+    check(export_counts[fwd] == batches,
+          f"export launched {fwd} {export_counts[fwd]} times for {batches} batches")
+    check(sum(export_counts.values()) == batches, f"export launched another kernel: {export_counts}")
     check(pts["density"] > 0, "the density cloud is empty")
     for cloud, c in first["counting"].items():
         if "error" in c:
-            print(f"orchard: count on {cloud}: {c['error']}")
+            print(f"{tag}: count on {cloud}: {c['error']}")
             check(pts[cloud] == 0, f"{cloud} has points but no count")
         else:
-            print(f"orchard: count on {cloud}: {c['count']}/{first['gt_count']} "
+            print(f"{tag}: count on {cloud}: {c['count']}/{first['gt_count']} "
                   f"({c['count_error_pct']:.2f}% error), F1 {c['F1']:.4f}, precision "
                   f"{c['precision']:.4f}, recall {c['recall']:.4f}")
             check(c["count"] >= 0 and 0.0 <= c["F1"] <= 1.0, f"count on {cloud}: {c}")
-    print(f"orchard: count_s {first['count_s']:.3f} s")
+    print(f"{tag}: count_s {first['count_s']:.3f} s")
 
-    print(f"orchard: second call resumed at step {second.get('resumed_from_step')}, ran "
+    print(f"{tag}: second call resumed at step {second.get('resumed_from_step')}, ran "
           f"{second['steps_run']} steps; train_rays_per_sec {second['train_rays_per_sec']}; "
           f"export points {second['export_points']}")
     check(second.get("resumed_from_step") == iters and second["steps_run"] == 0,
@@ -990,16 +1040,181 @@ def orchard_phase(dev, iters: int, export_n: int, hg, name: str):
     check(second["train_rays_per_sec"] is None and second["train_rays_per_sec_train_only"] is None,
           "a zero-step run reported a rate")
     check(second["export_points"] == pts, "the resumed run exported other clouds")
-    check(counts["sample_volume"][1]["cell_encode_fwd"] == batches, "the second export's K1 count")
+    check(counts["train_loop"][1][fwd] == counts["train_loop"][1][bwd] == 0,
+          "the zero-step resume launched a kernel in train_loop")
+    check(counts["sample_volume"][1][fwd] == batches, "the second export's launch count")
     runs = counts["train_loop"] + counts["sample_volume"]
-    return {k: sum(c[k] for c in runs) for k in ("cell_encode_fwd", "cell_encode_bwd")}
+    return {k: sum(c[k] for c in runs) for k in runs[0]}
+
+
+# ---------------------------------------------------------------------------
+# the hash-grid slice: the parity variant and the smoke preset
+# ---------------------------------------------------------------------------
+
+
+def parity_config(num_images: int, iters: int):
+    """The ``fruit_nerf`` preset's parity variant as orchard_e2e builds it
+    (sparsity 0.005, ``iters`` steps)."""
+    from fruitnerf_tpu_torch.configs import apply_overrides, fruit_nerf
+
+    cfg = apply_overrides(fruit_nerf(num_images, variant="parity"), {"sparsity_loss": 0.005})
+    return dataclasses.replace(cfg, max_iters=iters)
+
+
+def hash_layouts(cfg) -> list:
+    """(name, HashEncodingConfig, points a train step gives it) of each hash
+    encoding of a model: the main field (its fine samples), then each
+    proposal field (its proposal samples)."""
+    m, rays = cfg.model, cfg.train_rays_per_batch
+    out = [("main", m.field.hash, rays * m.num_nerf_samples)]
+    for i, (net, s) in enumerate(zip(m.proposal_nets, m.num_proposal_samples)):
+        out.append((f"proposal{i}", net.hash, rays * s))
+    return out
+
+
+def _hash_label(name, enc, p) -> str:
+    res = enc.level_resolutions()
+    return (f"K3/K4 {name} ({enc.num_levels} levels, T=2^{enc.log2_hashmap_size}, "
+            f"F={enc.features_per_level}, res {res[0]}..{res[-1]}, "
+            f"direct {sum(enc.table_layout().direct)}) at P={p}")
+
+
+def hash_kernel_phase(hg, cfg, dev, seed: int) -> dict:
+    """K3/K4 at each hash layout of the parity variant, at uniform-random
+    points: the main field's at P_SLICE (a step's fine samples and sparsity
+    points), each proposal field's at the points a step gives it."""
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    out = {}
+    for name, enc, p in hash_layouts(cfg):
+        p = P_SLICE if name == "main" else p
+        f, layout = enc.features_per_level, enc.table_layout()
+        inputs = _inputs(dev, g, layout.total_rows, f, enc.out_dim, p=p)
+        out[name] = {"points": p, **corner_pair(hg, layout, f, _hash_label(name, enc, p), *inputs)}
+    return out
+
+
+def hash_step_layouts(hg, cfg, captured: list, dev, seed: int) -> dict:
+    """K3/K4 at the positions of a parity step's four encodings (captured in
+    the order the step makes them: proposal 0, proposal 1, the main field's
+    fine samples, its sparsity points), each at its own layout."""
+    encs = dict((name, enc) for name, enc, _ in hash_layouts(cfg))
+    names = ("proposal0", "proposal1", "main", "sparsity")
+    check([tuple(c.shape) for c in captured] == [(p, 3) for _, _, p in hash_layouts(cfg)[1:]]
+          + [(hash_layouts(cfg)[0][2], 3), (cfg.model.sparsity_num_points, 3)],
+          f"the last parity step encoded {[tuple(c.shape) for c in captured]} points")
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    out = {}
+    for name, pos in zip(names, captured):
+        enc = encs["main" if name == "sparsity" else name]
+        f, layout = enc.features_per_level, enc.table_layout()
+        inputs = _inputs(dev, g, layout.total_rows, f, enc.out_dim, pos=pos.contiguous())
+        label = _hash_label(name, enc, pos.shape[0]).replace(" at P", " at the step's points, P")
+        out[name] = {"points": pos.shape[0], **corner_pair(hg, layout, f, label, *inputs)}
+    return out
+
+
+def predicted_hash_launches(cfg, steps: range, evals: int, chunks: int) -> dict:
+    """K3/K4 launches of ``train_loop`` over ``steps`` on a model whose
+    encodings are all corner-mode hash grids: each step encodes forward its
+    fine samples (and its sparsity points) in the main field and its
+    proposal samples in each proposal field; backward, the main field's
+    encodings every step and each proposal field's on the steps the
+    proposals train (``proposal_updated``); an eval chunk encodes forward in
+    every field."""
+    from fruitnerf_tpu_torch.models.fruit_model import proposal_updated
+
+    m = cfg.model
+    main = 1 + int(m.density_sparsity_mult > 0)
+    nets = len(m.proposal_nets)
+    trained = sum(proposal_updated(s, m) for s in steps)
+    return {"cell_encode_fwd": 0, "cell_encode_bwd": 0,
+            "corner_encode_fwd": len(steps) * (main + nets) + evals * chunks * (1 + nets),
+            "corner_encode_bwd": len(steps) * main + trained * nets}
+
+
+def repeat_check(label: str, cfg, data, seed: int) -> dict:
+    """Two runs of REPEAT_STEPS steps from one seed on the same draws, on
+    the kernels: every loss and parameter must be bitwise equal."""
+    from fruitnerf_tpu_torch.scripts.step_bench import REPEAT_STEPS, two_runs
+
+    r = two_runs(cfg, data, seed, REPEAT_STEPS)
+    print(f"{label}: two runs of {REPEAT_STEPS} steps from seed {seed} on the same draws: "
+          f"bitwise {r['bitwise']}; losses max rel diff {r['loss_max_rel']:.3e}; "
+          f"{r['leaves_differ']} of {r['leaves']} parameters differ, by at most "
+          f"{r['param_max_abs']:.3e}")
+    check(r["bitwise"], f"{label}: two runs from one seed differ")
+    return r
+
+
+SMOKE_ITERS = 200
+
+
+def smoke_phase(dev, hg, name: str, seed: int) -> dict:
+    """The smoke preset through its entry point, ``scripts.train.main``
+    (``--preset fruit_nerf_smoke --data synthetic``), SMOKE_ITERS steps: the
+    log's losses finite and its train PSNR rising, a final eval, K3/K4
+    launches as the config predicts. Then the repeat check on the smoke
+    preset. Returns the launches of its train_loop."""
+    from fruitnerf_tpu_torch.configs import fruit_nerf_smoke
+    from fruitnerf_tpu_torch.data.builder import dataset_from_scene
+    from fruitnerf_tpu_torch.data.synthetic import SyntheticSceneConfig, render_scene
+    from fruitnerf_tpu_torch.engine import trainer
+    from fruitnerf_tpu_torch.scripts import train as train_cli
+
+    parser = argparse.ArgumentParser()
+    train_cli.add_args(parser)
+    counts: dict = {}
+    with tempfile.TemporaryDirectory() as run_dir:
+        args = parser.parse_args(["--preset", "fruit_nerf_smoke", "--data", "synthetic",
+                                  "--max-iters", str(SMOKE_ITERS), "--output-dir", run_dir])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counted_calls(trainer, "train_loop", hg, counts):
+            state = train_cli.main(args)
+        wall = time.perf_counter() - t0
+        records = [json.loads(x) for x in (Path(run_dir) / "metrics.jsonl").read_text().splitlines()]
+        manifest = json.loads((Path(run_dir) / "manifest.json").read_text())
+    train = [r for r in records if "total_loss" in r]
+    final = [r for r in records if "final_eval_psnr" in r]
+    print(f"smoke: scripts.train.main --preset fruit_nerf_smoke --data synthetic --max-iters "
+          f"{SMOKE_ITERS} in {wall:.3f} s on {name}; step {state.step}; train PSNR "
+          + ", ".join(f"{r['psnr']:.3f} dB at {r['step']}" for r in train)
+          + f"; final eval PSNR {final[0]['final_eval_psnr']:.3f} dB; manifest hash entry "
+          f"{manifest['hash']['table_shape']}")
+    check(state.step == SMOKE_ITERS, f"the smoke run stopped at step {state.step}")
+    check(len(train) >= 2 and all(math.isfinite(r[k]) for r in train for k in LOSS_KEYS[:4]),
+          "a smoke loss is not finite")
+    check(train[-1]["psnr"] > train[0]["psnr"], "the smoke run's train PSNR did not rise")
+    check(len(final) == 1 and math.isfinite(final[0]["final_eval_psnr"]), "no final smoke eval")
+    cfg = fruit_nerf_smoke(24)
+    scene_px = 128 * 128
+    want = predicted_hash_launches(cfg, range(SMOKE_ITERS), SMOKE_ITERS // cfg.steps_per_eval,
+                                   math.ceil(scene_px / cfg.eval_rays_per_chunk))
+    got = counts["train_loop"][0]
+    print(f"smoke: launches in train_loop {got}, predicted {want}")
+    check(got == want, "the smoke run's K3/K4 launches differ from the prediction")
+
+    scene = render_scene(SyntheticSceneConfig(num_cameras=24, image_size=128, seed=seed), device=dev)
+    repeat_check("smoke", cfg, dataset_from_scene(scene, dev), seed)
+    return got
 
 
 def _other_kernels(lib, hg, corner: bool):
-    """Wrappers of another build's cell_encode or corner_encode pair (the
-    same C interface), uncounted: -> (fwd(table, pos, layout, f),
-    bwd(table, pos, grad, layout, f)); cell mode has f = 2."""
+    """Wrappers of another build's cell_encode or corner_encode pair,
+    uncounted: -> (fwd(table, pos, layout, f), bwd(table, pos, grad, layout,
+    f)); cell mode has f = 2. A backward without a ``*_work_bytes`` function
+    is the float-atomic one, which takes no work buffer and adds into a
+    zeroed dTable."""
+    import ctypes
+
     kind = "corner" if corner else "cell"
+    sizer = getattr(lib, f"{kind}_encode_bwd_work_bytes", None)
+    if sizer is None:  # drop the work pointer from the signature
+        argtypes = getattr(lib, f"{kind}_encode_bwd").argtypes
+        getattr(lib, f"{kind}_encode_bwd").argtypes = argtypes[:5] + argtypes[6:]
+    else:
+        sizer.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * (2 if corner else 1)
+        sizer.restype = ctypes.c_longlong
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -1016,7 +1231,13 @@ def _other_kernels(lib, hg, corner: bool):
     def bwd(table, pos, grad, layout, f):
         dtable, dpos = torch.zeros_like(table), torch.empty_like(pos)
         head = (pos.data_ptr(), table.data_ptr(), grad.data_ptr(), dtable.data_ptr(),
-                dpos.data_ptr(), pos.shape[0])
+                dpos.data_ptr())
+        if sizer is not None:
+            nbytes = (sizer(layout.total_rows, f, layout.num_levels) if corner
+                      else sizer(layout.total_rows, layout.num_levels))
+            work = torch.empty(nbytes, dtype=torch.uint8, device=pos.device)
+            head = (*head, work.data_ptr())
+        head = (*head, pos.shape[0])
         levels = (layout.num_levels, *hg._level_arrays(layout), stream())
         err = (lib.corner_encode_bwd(*head, f, 1, *levels) if corner
                else lib.cell_encode_bwd(*head, 1, *levels))
@@ -1134,6 +1355,7 @@ def main(argv=None) -> int:
                          "the corner slice, to capture a step's positions, and time its K3/K4 "
                          "against this checkout's (with --ab-cell-source, both)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; no result")
 
@@ -1183,21 +1405,31 @@ def main(argv=None) -> int:
         lambda t, p, gr, label: corner_pair(hg, corner_layout, f, label, t, p, gr),
         corner_layout, f, f * corner_layout.num_levels, captured, dev, args.seed, "K3/K4")
     orchard_counts = orchard_phase(dev, ORCHARD_ITERS, EXPORT_N, hg, name)
+    parity_cfg = parity_config(ORCHARD["num_cameras"], PARITY_ITERS)
+    hash_random = hash_kernel_phase(hg, parity_cfg, dev, args.seed)
+    captured = collections.deque(maxlen=4)  # the last parity step's four encodings
+    parity_counts = orchard_phase(dev, PARITY_ITERS, EXPORT_N, hg, name, "parity", captured)
+    hash_step = hash_step_layouts(hg, parity_cfg, list(captured), dev, args.seed)
+    smoke_counts = smoke_phase(dev, hg, name, args.seed)
     for k in kernels:  # K5/K6's launches were counted on their own path, in the kernel phase
         if k["name"].startswith("corner_encode"):
-            k["launches"] = corner_counts[k["name"]]
+            k["launches"] = corner_counts[k["name"]] + parity_counts[k["name"]] \
+                + smoke_counts[k["name"]]
         elif k["name"].startswith("cell_encode"):
             k["launches"] = cell_counts[k["name"]] + orchard_counts[k["name"]]
-    # K1/K2 and K3/K4 at their step's positions
-    for pair, step in ((kernels[0:2], step12), (kernels[2:4], step34)):
+    # K1/K2 and K3/K4 at their step's positions; K3/K4 at the parity layouts
+    for pair, key, step in ((kernels[0:2], "step", step12), (kernels[2:4], "step", step34),
+                            (kernels[2:4], "parity_random", hash_random),
+                            (kernels[2:4], "parity_step", hash_step)):
         for k, d in zip(pair, ("fwd", "bwd")):
-            k["step"] = {at: {"points": r["points"], **_fields(r, d)} for at, r in step.items()}
-            k["max_abs_err"] = max(k["max_abs_err"], *(r["max_abs_err"] for r in k["step"].values()))
+            k[key] = {at: {"points": r["points"], **_fields(r, d)} for at, r in step.items()}
+            k["max_abs_err"] = max(k["max_abs_err"], *(r["max_abs_err"] for r in k[key].values()))
     check("jax" not in sys.modules, "the port imported jax")
     jax_package = sorted(m for m in sys.modules
                          if m == "fruitnerf_tpu" or m.startswith("fruitnerf_tpu."))
     check(not jax_package, f"the port imported the JAX package: {jax_package}")
 
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

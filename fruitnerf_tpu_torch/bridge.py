@@ -10,7 +10,12 @@ of ``TrainState.params``), so this module needs no JAX:
              "proposal_networks": [{"mlp": {...}}, ...]},
    "camera_opt": [N, 6]}
 
-The port's tree is the same except ``grid_table``, which is one flat table:
+with ``hash_table`` [L, T, row_width] in place of ``grid_table`` on a hash
+field, and ``{"hash_table", "mlp"}`` for each hash DensityField proposal.
+The port's tree is the same except its tables, each one flat table:
+
+* every ``hash_table``: [L*T, row_width], the row-major reshape of
+  [L, T, row_width] (row_width F in corner mode, 16 in cell mode);
 
 * cell mode: [sum T_l, 16]. A level's [K_l, LO_l*16] array is row-major
   [T_l, 16] (cell t at row t), so the conversion is a reshape and a
@@ -28,7 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fields.encodings import GridEncodingConfig
+from .fields.density_field import DensityFieldConfig
+from .fields.encodings import GridEncodingConfig, HashEncodingConfig
 
 HI = 128  # rows of the JAX package's per-level [128, ...] tiles
 
@@ -124,12 +130,56 @@ def table_from_jax(table, grid: GridEncodingConfig) -> np.ndarray:
     return grid_table_from_jax(table, grid)
 
 
-def params_from_jax(tree: dict, grid: GridEncodingConfig, device) -> dict:
-    """JAX parameter tree (numpy leaves) -> the port's tensors on ``device``."""
-    field = dict(tree["model"]["field"])
-    field["grid_table"] = table_from_jax(field["grid_table"], grid)
+def hash_table_from_jax(table, config: HashEncodingConfig) -> np.ndarray:
+    """[L, T, row_width] -> flat [L*T, row_width] float32."""
+    table = np.asarray(table, np.float32)
+    want = (config.num_levels, config.table_size, config.row_width)
+    if table.shape != want:
+        raise ValueError(f"hash table {table.shape}, layout wants {list(want)}")
+    return table.reshape(config.table_shape)
+
+
+def hash_table_to_jax(table: np.ndarray, config: HashEncodingConfig) -> np.ndarray:
+    """Flat [L*T, row_width] -> [L, T, row_width]."""
+    if table.shape != config.table_shape:
+        raise ValueError(f"flat hash table {table.shape}, layout wants {list(config.table_shape)}")
+    return table.reshape(config.num_levels, config.table_size, config.row_width)
+
+
+def _convert_tables(model: dict, config, hash_fn, grid_fn) -> dict:
+    """A copy of the model tree (``{"field", "proposal_networks"}``) with
+    every table converted: the field's by ``config.field``'s encoding, each
+    hash proposal's by its ``DensityFieldConfig``."""
+    field = dict(model["field"])
+    key = config.field.table_key
+    if config.field.encoding == "hash":
+        field[key] = hash_fn(field[key], config.field.hash)
+    else:
+        field[key] = grid_fn(field[key], config.field.grid)
+    nets = model["proposal_networks"]
+    if len(nets) != len(config.proposal_nets):
+        raise ValueError(f"{len(nets)} proposal networks for {len(config.proposal_nets)} configs")
+    props = []
+    for net, cfg in zip(nets, config.proposal_nets):
+        net = dict(net)
+        if isinstance(cfg, DensityFieldConfig):
+            net["hash_table"] = hash_fn(net["hash_table"], cfg.hash)
+        props.append(net)
+    return {"field": field, "proposal_networks": props}
+
+
+def _grid_table_to_jax(table: np.ndarray, grid: GridEncodingConfig):
+    if grid.mode == "corner":
+        return corner_table_to_jax(table, grid.table_size, grid.features_per_level)
+    return grid_table_to_jax(table, grid)
+
+
+def params_from_jax(tree: dict, model, device) -> dict:
+    """JAX parameter tree (numpy leaves) -> the port's tensors on ``device``.
+    ``model`` is the run's ``FruitModelConfig``: it says each table's
+    encoding and layout."""
     tree = {
-        "model": {"field": field, "proposal_networks": tree["model"]["proposal_networks"]},
+        "model": _convert_tables(tree["model"], model, hash_table_from_jax, table_from_jax),
         "camera_opt": tree["camera_opt"],
     }
     return tree_map(
@@ -138,14 +188,8 @@ def params_from_jax(tree: dict, grid: GridEncodingConfig, device) -> dict:
     )
 
 
-def params_to_jax(params: dict, grid: GridEncodingConfig) -> dict:
+def params_to_jax(params: dict, model) -> dict:
     """The port's parameters -> a JAX-layout tree with numpy leaves."""
     tree = tree_map(params, lambda t: t.detach().cpu().numpy())
-    field = tree["model"]["field"]
-    if grid.mode == "corner":
-        field["grid_table"] = corner_table_to_jax(
-            field["grid_table"], grid.table_size, grid.features_per_level
-        )
-    else:
-        field["grid_table"] = grid_table_to_jax(field["grid_table"], grid)
+    tree["model"] = _convert_tables(tree["model"], model, hash_table_to_jax, _grid_table_to_jax)
     return tree

@@ -1,7 +1,11 @@
 """Training presets. Twin of ``fruitnerf_tpu/configs.py`` for the
-``fruit_nerf`` preset's ``grid`` variant: the grid main field with the
-frequency-MLP proposals. MLP compute is bfloat16 with float32 parameters
-and outputs. Tests shrink the preset with ``dataclasses.replace``.
+``fruit_nerf`` preset's ``grid`` variant (the grid main field with the
+frequency-MLP proposals) and ``parity`` variant (the reference's own
+network: a corner-mode hash grid with two hash-grid proposal fields), and
+the ``fruit_nerf_smoke`` preset. MLP compute is bfloat16 with float32
+parameters and outputs on ``fruit_nerf``, float32 on the smoke preset; the
+grid encodings compute in float32. Tests shrink a preset with
+``dataclasses.replace``.
 """
 from __future__ import annotations
 
@@ -9,7 +13,8 @@ import dataclasses
 
 import torch
 
-from .fields.encodings import GridEncodingConfig
+from .fields.density_field import DensityFieldConfig
+from .fields.encodings import GridEncodingConfig, HashEncodingConfig
 from .fields.freq_density_field import FreqDensityFieldConfig
 from .fields.fruit_field import FruitFieldConfig
 from .models.fruit_model import FruitModelConfig
@@ -24,7 +29,7 @@ TPU_PROPOSAL_NETS = (
 class OptimizerConfig:
     """Per-parameter-group Adam with a continuous exponential lr decay over
     ``max_steps``, or the run's ``max_iters`` when that is None (RAdam,
-    which the big and huge presets use, is still to port)."""
+    which the big and huge presets use, is ROADMAP Queue 1 item 4)."""
 
     lr_init: float = 1e-2
     lr_final: float = 1e-4
@@ -70,20 +75,28 @@ class TrainConfig:
 def fruit_nerf(
     num_images: int, compute_dtype: torch.dtype = torch.bfloat16, variant: str = "grid"
 ) -> TrainConfig:
-    """Base preset: 30k iterations, 4096 rays a batch, the two-tier cell grid
-    (16 levels, 16..2048, 4096 rows on the 12 coarser levels and 8192 on the
-    4 finest) and the frequency-MLP proposals."""
-    if variant != "grid":
+    """Base preset: 30k iterations, 4096 rays a batch.
+
+    ``variant="grid"``: the two-tier cell grid (16 levels, 16..2048, 4096
+    rows on the 12 coarser levels and 8192 on the 4 finest) and the
+    frequency-MLP proposals. ``variant="parity"``: the corner-mode hash grid
+    (16 levels, 2^19 entries, 16..2048) and the two hash DensityField
+    proposals, every group at Adam 1e-2, as the reference trains it."""
+    if variant not in ("grid", "parity"):
         raise NotImplementedError(
-            f"fruit_nerf variant {variant!r}: only 'grid' is ported "
-            "(the other variants are ROADMAP Queue 1 item 12)"
+            f"fruit_nerf variant {variant!r}: 'grid' and 'parity' are ported "
+            "(the 'tpu' variant is ROADMAP Queue 1 item 4)"
         )
     field = FruitFieldConfig(
         num_images=num_images,
+        hash=HashEncodingConfig(
+            num_levels=16, log2_hashmap_size=19, base_res=16, max_res=2048, mode="corner",
+        ),
         grid=GridEncodingConfig(
             num_levels=16, table_size=8192, base_res=16, max_res=2048,
             mid_table_size=4096, fine_levels=4,
         ),
+        encoding="grid" if variant == "grid" else "hash",
         hidden_dim=64,
         geo_feat_dim=15,
         hidden_dim_color=64,
@@ -92,26 +105,90 @@ def fruit_nerf(
         compute_dtype=compute_dtype,
         density_bias=-3.0,
     )
+    if variant == "grid":
+        model = FruitModelConfig(field=field, proposal_nets=TPU_PROPOSAL_NETS)
+        extra = dict(proposal_opt=TPU_MLP_OPT)
+    else:
+        model, extra = FruitModelConfig(field=field), {}
     return TrainConfig(
         preset="fruit_nerf",
-        model=FruitModelConfig(field=field, proposal_nets=TPU_PROPOSAL_NETS),
+        model=model,
         max_iters=30000,
         train_rays_per_batch=4096,
-        proposal_opt=TPU_MLP_OPT,
+        **extra,
     )
 
 
-def get_preset(name: str, num_images: int, variant: str = "grid") -> TrainConfig:
-    """A preset by name, as the JAX package's ``get_preset``. Only
-    ``fruit_nerf``'s ``grid`` variant is ported; the JAX package's other
-    presets (``fruit_nerf_big``, ``_huge``, ``_smoke``) and variants raise
-    NotImplementedError."""
-    if name != "fruit_nerf":
+def fruit_nerf_smoke(num_images: int, compute_dtype: torch.dtype = torch.float32) -> TrainConfig:
+    """Tiny preset for CPU tests and smoke runs: small hash tables, few
+    samples, a white background, 500 iterations. It takes no variant."""
+    field = FruitFieldConfig(
+        num_images=num_images,
+        hash=HashEncodingConfig(num_levels=8, log2_hashmap_size=13, base_res=4, max_res=128),
+        encoding="hash",
+        hidden_dim=32,
+        geo_feat_dim=15,
+        hidden_dim_color=32,
+        hidden_dim_semantic=32,
+        appearance_embed_dim=8,
+        compute_dtype=compute_dtype,
+    )
+    model = FruitModelConfig(
+        field=field,
+        num_nerf_samples=24,
+        num_proposal_samples=(48, 32),
+        proposal_nets=(
+            DensityFieldConfig(
+                hash=HashEncodingConfig(num_levels=4, log2_hashmap_size=11, base_res=4, max_res=64)
+            ),
+            DensityFieldConfig(
+                hash=HashEncodingConfig(num_levels=4, log2_hashmap_size=11, base_res=4, max_res=128)
+            ),
+        ),
+        near_plane=0.05,
+        far_plane=6.0,
+        background_color="white",
+        proposal_weights_anneal_max_num_iters=200,
+        proposal_warmup=200,
+    )
+    return TrainConfig(
+        preset="fruit_nerf_smoke",
+        model=model,
+        max_iters=500,
+        train_rays_per_batch=1024,
+        eval_rays_per_chunk=2048,
+        steps_per_save=250,
+        steps_per_eval=250,
+    )
+
+
+PRESETS = {"fruit_nerf": fruit_nerf, "fruit_nerf_smoke": fruit_nerf_smoke}
+# the JAX package's other presets: they need RAdam and image subsampling
+UNPORTED_PRESETS = ("fruit_nerf_big", "fruit_nerf_huge")
+
+
+def get_preset(name: str, num_images: int, **kw) -> TrainConfig:
+    """A preset by name, as the JAX package's ``get_preset``; ``kw`` goes to
+    the preset (``variant`` and ``compute_dtype`` for ``fruit_nerf``; the
+    smoke preset takes no variant)."""
+    if name in UNPORTED_PRESETS:
         raise NotImplementedError(
-            f"preset {name!r}: only 'fruit_nerf' is ported "
-            "(the other presets are ROADMAP Queue 1 item 12)"
+            f"preset {name!r} is not ported (it needs RAdam and image subsampling; "
+            "ROADMAP Queue 1 item 4)"
         )
-    return fruit_nerf(num_images, variant=variant)
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; choose from "
+                       f"{sorted([*PRESETS, *UNPORTED_PRESETS])}")
+    return PRESETS[name](num_images, **kw)
+
+
+def run_preset(name: str, num_images: int, variant: str) -> TrainConfig:
+    """The preset an entry point builds from its ``--preset`` and
+    ``--variant``: the smoke preset takes no variant, so it is dropped
+    there (the JAX scripts branch on the name likewise)."""
+    if name == "fruit_nerf_smoke":
+        return get_preset(name, num_images)
+    return get_preset(name, num_images, variant=variant)
 
 
 # Flat override keys, as recorded in a run's manifest (the JAX twin's
@@ -153,6 +230,12 @@ def apply_overrides(config: TrainConfig, overrides: dict) -> TrainConfig:
     model = {dst: ov[src] for src, dst in _MODEL_OVERRIDE_KEYS.items() if src in ov}
     train = {dst: ov[src] for src, dst in _TRAIN_OVERRIDE_KEYS.items() if src in ov}
     if grid:
+        if config.model.field.encoding != "grid":
+            raise ValueError(
+                f"grid overrides {sorted(k for k in _GRID_OVERRIDE_KEYS if k in ov)} apply to "
+                f"the grid variant's table; this config encodes with "
+                f"{config.model.field.encoding!r} (its table is fixed by the preset)"
+            )
         field["grid"] = dataclasses.replace(config.model.field.grid, **grid)
     if field:
         model["field"] = dataclasses.replace(config.model.field, **field)

@@ -2,7 +2,7 @@
 
 The JAX package's ``batched_searchsorted`` and ``take_sorted`` are TPU
 formulations (a comparison count and a masked prefix maximum); here they are
-``torch.searchsorted`` and ``torch.gather`` on rows that are sorted
+``torch.searchsorted`` and a rowwise index on rows that are sorted
 ascending, which gives the same values.
 """
 from __future__ import annotations
@@ -68,5 +68,13 @@ def batched_searchsorted(
 
 def take_sorted(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rowwise gather vals[r, idx[r, q]]. (The JAX twin's masked maximum
-    splits a gradient among tied values; gather gives it to the one read.)"""
-    return torch.gather(vals, -1, idx)
+    splits a gradient among tied values; this gives it to the one read.)
+
+    An advanced index, not ``torch.gather``: on CUDA the index's backward
+    is ``index_put_(accumulate=True)``, which sorts the indices and sums
+    each run in order, so it repeats bitwise; gather's backward adds float
+    atomics in whatever order they land (PyTorch lists it among the
+    nondeterministic ops, ``torch.use_deterministic_algorithms``)."""
+    v, i = vals.reshape(-1, vals.shape[-1]), idx.reshape(-1, idx.shape[-1])
+    rows = torch.arange(v.shape[0], device=v.device)[:, None]
+    return v[rows, i].reshape(idx.shape)

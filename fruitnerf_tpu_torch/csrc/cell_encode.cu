@@ -37,16 +37,19 @@
 // read and written as contiguous rows. In a warp, lanes that hit the same
 // row issue one load for it, and in the backward the lanes of each run of
 // consecutive points on the same row sum their 16 products with a
-// segmented warp scan; the run's last lane adds them with four float4
-// atomics (vector atomics on global memory are new in sm_90). Points that
-// share a row but not a run (a hash collision) add separately, which is
-// still correct. dPositions is summed per warp over its levels, then over
+// segmented warp scan; the run's last lane adds them to dTable's 64-bit
+// fixed-point sums with integer atomics (fixed_sum.cuh), so that dTable
+// does not depend on the order of the adds. Points that share a row but not
+// a run (a hash collision) add separately. dPositions is summed per warp
+// over its levels, then over
 // the warps through shared memory, and written once, coalesced.
 // Everything is float32. The TPU kernel rounds the table, the saved rows
 // and the per-point dTable terms to bfloat16; that divergence is deliberate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fixed_sum.cuh"
 
 #define CELL_MAX_LEVELS 32
 #define TILE 32          // points a block: one per lane
@@ -152,9 +155,11 @@ __global__ void __launch_bounds__(TILE * MAX_WARPS)
 cell_encode_bwd_kernel(const float* __restrict__ pos,
                        const float4* __restrict__ table,
                        const float* __restrict__ grad,
-                       float* __restrict__ dtable,
+                       unsigned long long* __restrict__ acc,
+                       const unsigned* __restrict__ colmax,
                        float* __restrict__ dpos, int num_points,
                        int needs_pos_grad, CellLevels lv) {
+  __shared__ double s_scale[2 * CELL_MAX_LEVELS];  // fixed-point scale of each column
   __shared__ float s_pos[TILE * 3];
   __shared__ float s_grad[TILE * (2 * CELL_MAX_LEVELS + 1)];
   __shared__ float s_dpos[MAX_WARPS][TILE * 3];
@@ -170,6 +175,8 @@ cell_encode_bwd_kernel(const float* __restrict__ pos,
   for (int i = threadIdx.x; i < n * width; i += blockDim.x)
     s_grad[(i / width) * stride + i % width] = src[i];
   for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) s_pos[i] = pos[3 * p0 + i];
+  for (int i = threadIdx.x; i < width; i += blockDim.x)
+    s_scale[i] = fixed_scale(colmax[i], num_points);
   __syncthreads();
   const bool live = lane < n;
   const float x = live ? s_pos[3 * lane] : 0.f;
@@ -214,11 +221,9 @@ cell_encode_bwd_kernel(const float* __restrict__ pos,
     }
     const bool last = lane == 31 || ((heads >> (lane + 1)) & 1u);
     if (last && key >= 0) {
-      float4* drow = reinterpret_cast<float4*>(dtable) + (long long)key * 4;
-      atomicAdd(drow, make_float4(d[0], d[1], d[2], d[3]));
-      atomicAdd(drow + 1, make_float4(d[4], d[5], d[6], d[7]));
-      atomicAdd(drow + 2, make_float4(d[8], d[9], d[10], d[11]));
-      atomicAdd(drow + 3, make_float4(d[12], d[13], d[14], d[15]));
+      unsigned long long* arow = acc + (long long)key * 16;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) add_fixed(arow + k, d[k], s_scale[2 * l + (k & 1)]);
     }
 
     if (needs_pos_grad && key >= 0) {
@@ -293,21 +298,37 @@ extern "C" int cell_encode_fwd(const float* pos, const float* table,
   return (int)cudaGetLastError();
 }
 
-// dtable must be zero-filled by the caller and 16-byte aligned (float4
-// atomics); dpos is written only when needs_pos_grad is nonzero.
+static long long table_rows(const CellLevels& lv) {
+  return (long long)lv.offset[lv.num_levels - 1] + lv.rows[lv.num_levels - 1];
+}
+
+// Bytes of the backward's work buffer at a table of total_rows rows.
+extern "C" long long cell_encode_bwd_work_bytes(long long total_rows,
+                                                int num_levels) {
+  return fixed_work_bytes(total_rows * 16, 2 * num_levels);
+}
+
+// dtable is written whole (every row, touched or not); work is
+// cell_encode_bwd_work_bytes long and 8-byte aligned; dpos is written only
+// when needs_pos_grad is nonzero. With no points dtable is zeroed.
 extern "C" int cell_encode_bwd(const float* pos, const float* table,
                                const float* grad, float* dtable, float* dpos,
-                               int num_points, int needs_pos_grad,
+                               void* work, int num_points, int needs_pos_grad,
                                int num_levels, const int* res,
                                const int* rows, const int* offset,
                                const int* direct, void* stream) {
   CellLevels lv;
   if (!fill_levels(&lv, num_levels, res, rows, offset, direct))
     return (int)cudaErrorInvalidValue;
-  if (num_points <= 0) return 0;
-  cell_encode_bwd_kernel<<<tiles(num_points), tile_block(num_levels), 0,
-                           (cudaStream_t)stream>>>(
-      pos, reinterpret_cast<const float4*>(table), grad, dtable, dpos,
-      num_points, needs_pos_grad, lv);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long entries = table_rows(lv) * 16;
+  if (num_points <= 0) return (int)cudaMemsetAsync(dtable, 0, sizeof(float) * entries, s);
+  fixed_begin(s, work, entries, grad, num_points, 2 * num_levels);
+  unsigned long long* acc = reinterpret_cast<unsigned long long*>(work);
+  cell_encode_bwd_kernel<<<tiles(num_points), tile_block(num_levels), 0, s>>>(
+      pos, reinterpret_cast<const float4*>(table), grad, acc,
+      reinterpret_cast<const unsigned*>(acc + entries), dpos, num_points,
+      needs_pos_grad, lv);
+  fixed_end(s, work, entries, dtable, num_points, 16, 2, lv);
   return (int)cudaGetLastError();
 }

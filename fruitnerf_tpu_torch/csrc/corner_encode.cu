@@ -46,27 +46,26 @@
 //   * backward: the key of a run is the lane's cell at that level (a cell
 //     fixes all eight corner rows and their in-range flags). A segmented
 //     warp scan, two corners (cx = 0, 1) and 2F floats at a time, leaves
-//     each run's 8F sums in its last lane, which adds each corner's F floats
-//     with one vector atomic (float2 at F = 2, float4 at F = 4, two float4
-//     at F = 8, scalar otherwise; vector atomics on global memory are new
-//     in sm_90). A warp-uniform ballot skips the scan when no run is longer
-//     than one lane. Two cells whose corners hash onto one row are a
-//     collision, not a run: such lanes add apart, which is still exact up
-//     to the order of the sums. dPositions re-reads the corner rows only
+//     each run's 8F sums in its last lane, which adds them to dTable's
+//     64-bit fixed-point sums with integer atomics (fixed_sum.cuh), so that
+//     dTable does not depend on the order of the adds. A warp-uniform ballot
+//     skips the scan when no run is longer than one lane. Two cells whose
+//     corners hash onto one row are a collision, not a run: such lanes add
+//     apart. dPositions re-reads the corner rows only
 //     when it is wanted, is summed per warp over its levels, then over the
 //     warps in shared memory, and is written once, coalesced.
 //   * both: at F = 2 the rows of corners cx = 0 and 1 form one aligned
 //     16-byte pair whenever ix is even on a hashed level (ix + 1 == ix ^ 1
 //     leaves the hash's other bits alone) or the first row is even on a
-//     direct one; such a pair is one float4 load or atomic, not two float2.
-//     On hashed levels that saves a quarter of the atomics, which bound the
-//     backward at random points.
+//     direct one; such a pair is one float4 load, not two float2.
 // Everything is float32. The TPU kernel rounds the table and the 8-corner
 // sum to the compute dtype, and in its backward the dTable terms and the
 // dPos products (bfloat16 on the preset); that divergence is deliberate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fixed_sum.cuh"
 
 #define CORNER_MAX_LEVELS 32
 #define CORNER_MAX_FEATURES 8
@@ -120,22 +119,14 @@ __device__ __forceinline__ void load_entry(const float* __restrict__ table,
   }
 }
 
-// Adds F floats to flat row `row` of dtable (aligned as load_entry's rows).
+// Adds F floats to flat row `row` of the fixed-point dTable sums, feature f
+// at scale[f].
 template <int F>
-__device__ __forceinline__ void add_entry(float* __restrict__ dtable,
-                                          long long row, const float* d) {
-  float* p = dtable + row * F;
-  if constexpr (F == 2) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(d[0], d[1]));
-  } else if constexpr (F == 4 || F == 8) {
+__device__ __forceinline__ void add_entry(unsigned long long* __restrict__ acc,
+                                          long long row, const float* d,
+                                          const double* scale) {
 #pragma unroll
-    for (int k = 0; k < F / 4; ++k)
-      atomicAdd(reinterpret_cast<float4*>(p) + k,
-                make_float4(d[4 * k], d[4 * k + 1], d[4 * k + 2], d[4 * k + 3]));
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f) atomicAdd(p + f, d[f]);
-  }
+  for (int f = 0; f < F; ++f) add_fixed(acc + row * F + f, d[f], scale[f]);
 }
 
 // Flat row (offset_l + row) of entry (ix, iy, iz) at level l, or -1 when
@@ -175,22 +166,6 @@ __device__ __forceinline__ void load_pair(const float* __restrict__ table,
   }
 }
 
-template <int F>
-__device__ __forceinline__ void add_pair(float* __restrict__ dtable,
-                                         long long a, long long b,
-                                         const float* da, const float* db) {
-  if constexpr (F == 2) {
-    if (a >= 0 && b == (a ^ 1)) {
-      const float4 q = (a & 1) ? make_float4(db[0], db[1], da[0], da[1])
-                               : make_float4(da[0], da[1], db[0], db[1]);
-      atomicAdd(reinterpret_cast<float4*>(dtable + (a & ~1LL) * 2), q);
-      return;
-    }
-  }
-  if (a >= 0) add_entry<F>(dtable, a, da);
-  if (b >= 0) add_entry<F>(dtable, b, db);
-}
-
 // Scaled coordinates of a point at level l: integer cell and fractions.
 __device__ __forceinline__ void cell_of(float x, float y, float z, float r,
                                        int* ix, int* iy, int* iz, float* tx,
@@ -210,16 +185,17 @@ __device__ __forceinline__ void cell_of(float x, float y, float z, float r,
 // the same column, hit 32 banks.
 __host__ __device__ __forceinline__ int tile_stride(int width) { return width | 1; }
 
-// Shared memory is sized at launch to the layout (at most 39.4 KB, at 32
+// Shared memory is sized at launch to the layout (at most 41.4 KB, at 32
 // levels and F = 8), so that a small layout leaves the SM's L1 to the
 // table: positions [TILE * 3], the tile's block [TILE * stride] and, in the
-// backward, the warps' dPositions [warps * TILE * 3].
+// backward, the columns' fixed-point scales [width] (first, as doubles) and
+// the warps' dPositions [warps * TILE * 3].
 static size_t fwd_smem(int width) {
   return sizeof(float) * (TILE * 3 + TILE * tile_stride(width));
 }
 
 static size_t bwd_smem(int width, int warps) {
-  return fwd_smem(width) + sizeof(float) * warps * TILE * 3;
+  return sizeof(double) * width + fwd_smem(width) + sizeof(float) * warps * TILE * 3;
 }
 
 template <int F>
@@ -283,13 +259,15 @@ __global__ void __launch_bounds__(TILE * MAX_WARPS)
 corner_encode_bwd_kernel(const float* __restrict__ pos,
                          const float* __restrict__ table,
                          const float* __restrict__ grad,
-                         float* __restrict__ dtable,
+                         unsigned long long* __restrict__ acc,
+                         const unsigned* __restrict__ colmax,
                          float* __restrict__ dpos, int num_points,
                          int needs_pos_grad, CornerLevels lv) {
-  extern __shared__ float smem[];  // bwd_smem
+  extern __shared__ double s_scale[];  // bwd_smem: [width] scales, then floats
   const unsigned kAll = 0xffffffffu;
   const int num_levels = lv.num_levels;
   const int width = num_levels * F, stride = tile_stride(width);
+  float* smem = reinterpret_cast<float*>(s_scale + width);
   float* s_pos = smem;
   float* s_grad = smem + TILE * 3;
   float* s_dpos = s_grad + TILE * stride;  // [warps][TILE * 3]
@@ -302,6 +280,8 @@ corner_encode_bwd_kernel(const float* __restrict__ pos,
   for (int i = threadIdx.x; i < n * width; i += blockDim.x)
     s_grad[(i / width) * stride + i % width] = src[i];
   for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) s_pos[i] = pos[3 * p0 + i];
+  for (int i = threadIdx.x; i < width; i += blockDim.x)
+    s_scale[i] = fixed_scale(colmax[i], num_points);
   __syncthreads();
   const bool live = lane < n;
   const float x = live ? s_pos[3 * lane] : 0.f;
@@ -362,7 +342,10 @@ corner_encode_bwd_kernel(const float* __restrict__ pos,
       // the same for every lane of a run: the cell fixes them
       const long long a = corner_flat(lv, l, ix, iy + cy, iz + cz);
       const long long b = corner_flat(lv, l, ix + 1, iy + cy, iz + cz);
-      if (adds) add_pair<F>(dtable, a, b, da, db);  // a zero entry takes none
+      if (adds) {  // a zero entry takes none
+        if (a >= 0) add_entry<F>(acc, a, da, s_scale + l * F);
+        if (b >= 0) add_entry<F>(acc, b, db, s_scale + l * F);
+      }
       if (needs_pos_grad && live) {
         float va[F], vb[F];
         load_pair<F>(table, a, b, va, vb);
@@ -429,15 +412,25 @@ static void launch_fwd(cudaStream_t stream, const float* pos,
       pos, table, out, num_points, lv);
 }
 
+static long long table_rows(const CornerLevels& lv) {
+  return (long long)lv.offset[lv.num_levels - 1] + lv.rows[lv.num_levels - 1];
+}
+
 template <int F>
 static void launch_bwd(cudaStream_t stream, const float* pos,
                        const float* table, const float* grad, float* dtable,
-                       float* dpos, int num_points, int needs_pos_grad,
-                       const CornerLevels& lv) {
+                       float* dpos, void* work, int num_points,
+                       int needs_pos_grad, const CornerLevels& lv) {
+  const int width = lv.num_levels * F;
+  const long long entries = table_rows(lv) * F;
+  fixed_begin(stream, work, entries, grad, num_points, width);
+  unsigned long long* acc = reinterpret_cast<unsigned long long*>(work);
   const dim3 block = tile_block(lv.num_levels);
   corner_encode_bwd_kernel<F><<<tiles(num_points), block,
-                                bwd_smem(lv.num_levels * F, block.x / 32), stream>>>(
-      pos, table, grad, dtable, dpos, num_points, needs_pos_grad, lv);
+                                bwd_smem(width, block.x / 32), stream>>>(
+      pos, table, grad, acc, reinterpret_cast<const unsigned*>(acc + entries), dpos,
+      num_points, needs_pos_grad, lv);
+  fixed_end(stream, work, entries, dtable, num_points, F, F, lv);
 }
 
 // Plain C interface, loaded with ctypes. Pointers are device pointers except
@@ -473,11 +466,19 @@ extern "C" int corner_encode_fwd(const float* pos, const float* table,
   return (int)cudaGetLastError();
 }
 
-// dtable must be zero-filled by the caller and 16-byte aligned (vector
-// atomics); dpos is written only when needs_pos_grad is nonzero.
+// Bytes of the backward's work buffer at a table of total_rows rows.
+extern "C" long long corner_encode_bwd_work_bytes(long long total_rows,
+                                                  int num_features,
+                                                  int num_levels) {
+  return fixed_work_bytes(total_rows * num_features, num_levels * num_features);
+}
+
+// dtable is written whole (every row, touched or not); work is
+// corner_encode_bwd_work_bytes long and 8-byte aligned; dpos is written
+// only when needs_pos_grad is nonzero. With no points dtable is zeroed.
 extern "C" int corner_encode_bwd(const float* pos, const float* table,
                                  const float* grad, float* dtable, float* dpos,
-                                 int num_points, int num_features,
+                                 void* work, int num_points, int num_features,
                                  int needs_pos_grad, int num_levels,
                                  const int* res, const int* rows,
                                  const int* offset, const int* direct,
@@ -485,11 +486,12 @@ extern "C" int corner_encode_bwd(const float* pos, const float* table,
   CornerLevels lv;
   if (!fill_corner_levels(&lv, num_levels, res, rows, offset, direct))
     return (int)cudaErrorInvalidValue;
-  if (num_points <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (num_points <= 0)
+    return (int)cudaMemsetAsync(dtable, 0, sizeof(float) * table_rows(lv) * num_features, s);
 #define CORNER_BWD_CASE(F)                                                  \
   case F:                                                                   \
-    launch_bwd<F>(s, pos, table, grad, dtable, dpos, num_points,            \
+    launch_bwd<F>(s, pos, table, grad, dtable, dpos, work, num_points,      \
                   needs_pos_grad, lv);                                      \
     break;
   switch (num_features) {

@@ -7,12 +7,14 @@ and the training loop's generator state, so that a resumed run draws what an
 uninterrupted one would. It is written to a temporary file and renamed into
 place, so a preempted save never leaves a partial latest checkpoint.
 
-The manifest keeps the JAX package's JSON schema and adds a ``grid`` entry,
-the resolved grid layout (mode, features, resolutions, per-level rows and
-direct flags, caps): restoring rebuilds the table's shape from it and
-refuses a config whose layout differs, so a changed default cannot leave an
-older run unrestorable or silently reshaped. The JAX package's manifest
-lacks it.
+The manifest keeps the JAX package's JSON schema and adds the field's
+encoding and its resolved layout: a ``grid`` entry for the grid variant
+(mode, features, resolutions, per-level rows and direct flags, caps) or a
+``hash`` entry for a hash field (the ``HashEncodingConfig`` fields, the
+resolutions, rows and direct flags). Restoring rebuilds the table's shape
+from it and refuses a config whose encoding or layout differs, so a changed
+default cannot leave an older run unrestorable or silently reshaped. The
+JAX package's manifest lacks both.
 
 ``read_jax_checkpoint`` reads a JAX ``ckpt_*.msgpack`` with ``msgpack``
 alone and converts it through ``bridge.params_from_jax``.
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from ..bridge import params_from_jax, tree_leaves, tree_map
-from ..fields.encodings import GridEncodingConfig
+from ..fields.encodings import GridEncodingConfig, HashEncodingConfig
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.pt$")
 
@@ -124,12 +126,13 @@ def resume_from_latest(checkpoint_dir, target_state, generator: torch.Generator 
     return load_checkpoint(path, target_state, generator), True
 
 
-def read_jax_checkpoint(path, grid: GridEncodingConfig, device) -> tuple[dict, int]:
+def read_jax_checkpoint(path, model, device) -> tuple[dict, int]:
     """A JAX ``ckpt_*.msgpack`` (``flax.serialization.to_bytes`` of its
     TrainState) -> (the port's parameters on ``device``, step). Decodes
     flax's msgpack format with ``msgpack`` alone: arrays are extension 1
     (ndarray) or 3 (numpy scalar), each a packed (shape, dtype name,
-    row-major bytes); lists and tuples are dicts keyed "0", "1", ...."""
+    row-major bytes); lists and tuples are dicts keyed "0", "1", ....
+    ``model`` is the run's ``FruitModelConfig``, which lays out its tables."""
     import msgpack
 
     def ext_hook(code, data):
@@ -149,7 +152,7 @@ def read_jax_checkpoint(path, grid: GridEncodingConfig, device) -> tuple[dict, i
 
     with open(path, "rb") as f:
         state = msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
-    return params_from_jax(lists(state["params"]), grid, device), int(state["step"])
+    return params_from_jax(lists(state["params"]), model, device), int(state["step"])
 
 
 # ---------------------------------------------------------------------------
@@ -171,42 +174,62 @@ def _to_jsonable(x):
     return str(x)
 
 
-def grid_layout(grid: GridEncodingConfig) -> dict:
-    """The manifest's ``grid`` entry: the config's fields and the layout
-    they resolve to."""
-    layout = grid.table_layout()
-    caps = grid.level_caps()
-    return {
-        **_to_jsonable(grid),
+_ENCODINGS = {"grid": GridEncodingConfig, "hash": HashEncodingConfig}
+
+
+def _entry(encoding: GridEncodingConfig | HashEncodingConfig) -> str:
+    return "hash" if isinstance(encoding, HashEncodingConfig) else "grid"
+
+
+def grid_layout(encoding: GridEncodingConfig | HashEncodingConfig) -> dict:
+    """The manifest's ``grid`` or ``hash`` entry: the config's fields and
+    the layout they resolve to (a grid entry also records its caps)."""
+    layout = encoding.table_layout()
+    out = {
+        **_to_jsonable(encoding),
         "resolutions": list(layout.resolutions),
         "rows": list(layout.rows),
         "direct": list(layout.direct),
-        "caps": list(caps) if isinstance(caps, tuple) else [caps] * grid.num_levels,
-        "table_shape": list(grid.table_shape),
+        "table_shape": list(encoding.table_shape),
     }
+    if isinstance(encoding, GridEncodingConfig):
+        caps = encoding.level_caps()
+        out["caps"] = list(caps) if isinstance(caps, tuple) else [caps] * encoding.num_levels
+    return out
 
 
 def grid_from_manifest(
-    manifest: dict, expect: GridEncodingConfig | None = None
-) -> GridEncodingConfig:
-    """Rebuild the grid config a manifest records. Raises ValueError naming
-    the fields that differ when the rebuilt layout differs from the recorded
-    one, or when ``expect`` (the config about to restore the run) has
+    manifest: dict, expect: GridEncodingConfig | HashEncodingConfig | None = None
+) -> GridEncodingConfig | HashEncodingConfig:
+    """Rebuild the encoding config a manifest records (its ``grid`` or
+    ``hash`` entry). Raises ValueError naming what differs when the rebuilt
+    layout differs from the recorded one, or when ``expect`` (the field's
+    encoding config about to restore the run) is of the other kind or has
     another layout."""
-    recorded = manifest.get("grid")
-    if recorded is None:
-        raise ValueError("the manifest has no grid entry (the JAX package's manifests lack it)")
-    names = {f.name for f in dataclasses.fields(GridEncodingConfig)}
-    grid = GridEncodingConfig(**{k: v for k, v in recorded.items() if k in names})
-    for other in (grid,) if expect is None else (grid, expect):
+    kinds = [k for k in _ENCODINGS if k in manifest]
+    if not kinds:
+        raise ValueError(
+            "the manifest has no grid entry, nor a hash entry (the JAX package's "
+            "manifests lack both)"
+        )
+    kind = kinds[0]
+    if expect is not None and _entry(expect) != kind:
+        raise ValueError(
+            f"the run's field encodes with {kind!r}, this config's with {_entry(expect)!r}"
+        )
+    recorded = manifest[kind]
+    cls = _ENCODINGS[kind]
+    names = {f.name for f in dataclasses.fields(cls)}
+    encoding = cls(**{k: v for k, v in recorded.items() if k in names})
+    for other in (encoding,) if expect is None else (encoding, expect):
         want = grid_layout(other)
         differ = sorted(k for k in want if recorded.get(k) != want[k])
         if differ:
             raise ValueError(
-                "the run's grid layout does not match this config: "
+                f"the run's {kind} layout does not match this config: "
                 + ", ".join(f"{k} {recorded.get(k)!r} vs {want[k]!r}" for k in differ[:6])
             )
-    return grid
+    return encoding
 
 
 def write_manifest(
@@ -216,10 +239,13 @@ def write_manifest(
     dataparser_scale: float,
     scene_aabb: np.ndarray,
     num_images: int,
-    grid: GridEncodingConfig,
+    grid: GridEncodingConfig | HashEncodingConfig,
     semantics_classes=("apple", "stuff"),
     extra: dict | None = None,
 ) -> Path:
+    """Write ``manifest.json``; ``grid`` is the field's encoding config
+    (``FruitFieldConfig.encoding_config``), recorded under ``grid`` or
+    ``hash``."""
     run_dir = Path(run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
     manifest = {
@@ -230,7 +256,7 @@ def write_manifest(
         "scene_aabb": _to_jsonable(scene_aabb),
         "num_images": int(num_images),
         "semantics_classes": list(semantics_classes),
-        "grid": grid_layout(grid),
+        _entry(grid): grid_layout(grid),
     }
     if extra:
         manifest.update(_to_jsonable(extra))

@@ -1,8 +1,6 @@
-"""Input encodings: the multiresolution grid (cell and corner modes),
+"""Input encodings: the instant-ngp hash grid (``hash_encode``), the
+multiresolution grid of the grid variant (cell and corner modes),
 spherical harmonics, frequency. Twin of ``fruitnerf_tpu/fields/encodings.py``.
-
-The XLA ``hash_encode`` of the JAX package is still to port (ROADMAP
-Queue 1).
 """
 from __future__ import annotations
 
@@ -13,7 +11,103 @@ import torch
 
 from ..ops.hash_grid import (
     CellLayout, cell_encode, cell_level_layout, corner_layout, grid_encode_flat,
+    uniform_cell_layout,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class HashEncodingConfig:
+    """The instant-ngp hash grid: ``num_levels`` levels of one uniform table
+    of 2^``log2_hashmap_size`` entries, resolutions ``base_res`` ..
+    ``max_res``.
+
+    ``mode="corner"``: instant-ngp semantics, 8 corner entries of F
+    features per (point, level); direct when (res+1)^3 <= T, else hashed.
+    ``mode="cell"`` (F = 2): each cell's 8 corners x F features in one
+    16-float row; direct when res^3 <= T. The JAX package's ``[L, T,
+    row_width]`` table is the port's flat ``[L*T, row_width]`` table."""
+
+    num_levels: int = 16
+    features_per_level: int = 2
+    log2_hashmap_size: int = 19
+    base_res: int = 16
+    max_res: int = 2048
+    mode: str = "corner"
+
+    def __post_init__(self):
+        if self.mode not in ("cell", "corner"):
+            raise ValueError(
+                f"HashEncodingConfig.mode must be 'cell' or 'corner'; got {self.mode!r}"
+            )
+        if self.mode == "cell" and self.features_per_level != 2:
+            raise ValueError(
+                "cell mode packs 8 corners x F=2 features into 16-float rows; "
+                f"features_per_level must be 2, got {self.features_per_level}"
+            )
+
+    @property
+    def table_size(self) -> int:
+        return 1 << self.log2_hashmap_size
+
+    @property
+    def row_width(self) -> int:
+        return self.features_per_level * (1 if self.mode == "corner" else 8)
+
+    @property
+    def out_dim(self) -> int:
+        return self.num_levels * self.features_per_level
+
+    @property
+    def growth_factor(self) -> float:
+        if self.num_levels == 1:
+            return 1.0
+        return math.exp(
+            (math.log(self.max_res) - math.log(self.base_res))
+            / (self.num_levels - 1)
+        )
+
+    def level_resolutions(self) -> list[int]:
+        g = self.growth_factor
+        return [
+            int(math.floor(self.base_res * (g**lvl))) for lvl in range(self.num_levels)
+        ]
+
+    def table_layout(self) -> CellLayout:
+        """Each level's T rows in the flat table and its direct flag."""
+        if self.mode == "corner":
+            return corner_layout(self.level_resolutions(), self.table_size)
+        return uniform_cell_layout(self.level_resolutions(), self.table_size)
+
+    @property
+    def table_shape(self) -> tuple[int, int]:
+        """[L*T, row_width]."""
+        return (self.num_levels * self.table_size, self.row_width)
+
+
+def init_hash_table(
+    config: HashEncodingConfig, generator: torch.Generator, device
+) -> torch.Tensor:
+    """The flat table (``config.table_shape``), uniform(-1e-4, 1e-4) like
+    instant-ngp."""
+    u = torch.rand(config.table_shape, generator=generator, device=device)
+    return u * 2e-4 - 1e-4
+
+
+def hash_encode(
+    table: torch.Tensor, positions: torch.Tensor, config: HashEncodingConfig
+) -> torch.Tensor:
+    """positions [..., 3] in [0,1)^3 -> features [..., L*F] float32.
+    ``grid_encode_flat`` at one uniform T in either mode: the corner
+    kernels (K3/K4) or, in cell mode, the cell kernels at
+    ``uniform_cell_layout`` (K1/K2) on CUDA tensors; their plain versions
+    on CPU tensors. Compute is float32 (the JAX twin casts the table to its
+    compute dtype)."""
+    batch_shape = positions.shape[:-1]
+    out = grid_encode_flat(
+        table, positions.reshape(-1, 3), config.level_resolutions(), config.table_size,
+        config.features_per_level, config.mode,
+    )
+    return out.reshape(*batch_shape, config.out_dim)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,13 +1,14 @@
 """FruitField: grid NeRF with RGB, density and a binary semantic head. Twin
-of ``fruitnerf_tpu/fields/fruit_field.py`` for ``encoding="grid"``:
+of ``fruitnerf_tpu/fields/fruit_field.py`` for ``encoding="grid"`` and
+``encoding="hash"``:
 
-  positions --contract(inf)--> [0,1]^3 --grid (cell or corner)--> base MLP
+  positions --contract(inf)--> [0,1]^3 --grid or hash grid--> base MLP
       -> density (trunc_exp, f32) + geo features
   [SH(dir), geo, appearance embedding] -> color MLP -> sigmoid RGB
   detached geo -> semantic MLP -> linear head -> 1 fruit logit
 
 Appearance embeddings are indexed per training image; eval uses their mean.
-The JAX twin's "hash" and "freq" encodings are still to port.
+The JAX twin's "freq" encoding is still to port (ROADMAP Queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -16,14 +17,30 @@ import dataclasses
 import torch
 
 from ..core.math import contract_to_unit, normalize_aabb_to_unit, trunc_exp
-from .encodings import GridEncodingConfig, grid_encode, init_grid_table, sh_encode
+from .encodings import (
+    GridEncodingConfig,
+    HashEncodingConfig,
+    grid_encode,
+    hash_encode,
+    init_grid_table,
+    init_hash_table,
+    sh_encode,
+)
 from .mlp import MLPConfig, apply_mlp, init_mlp
+
+# the parameter that holds each encoding's table
+TABLE_KEYS = {"grid": "grid_table", "hash": "hash_table"}
 
 
 @dataclasses.dataclass(frozen=True)
 class FruitFieldConfig:
     num_images: int
+    hash: HashEncodingConfig = HashEncodingConfig()
     grid: GridEncodingConfig = GridEncodingConfig()
+    # "grid": the grid variant's multiresolution grid; "hash": the
+    # instant-ngp hash grid (the parity variant and the smoke preset). The
+    # JAX twin defaults to "hash"; the port keeps "grid", its first preset's.
+    encoding: str = "grid"
     num_layers_base: int = 2
     hidden_dim: int = 64
     geo_feat_dim: int = 15
@@ -38,10 +55,26 @@ class FruitFieldConfig:
     # added to the raw density logit before trunc_exp (-3: start empty)
     density_bias: float = 0.0
 
+    def __post_init__(self):
+        if self.encoding not in TABLE_KEYS:
+            raise NotImplementedError(
+                f"FruitField encoding {self.encoding!r}: only 'grid' and 'hash' are "
+                "ported (the frequency encoding is ROADMAP Queue 1 item 4)"
+            )
+
+    @property
+    def encoding_config(self) -> GridEncodingConfig | HashEncodingConfig:
+        """The config of the encoding in use."""
+        return self.hash if self.encoding == "hash" else self.grid
+
+    @property
+    def table_key(self) -> str:
+        return TABLE_KEYS[self.encoding]
+
     @property
     def base_mlp(self) -> MLPConfig:
         return MLPConfig(
-            in_dim=self.grid.out_dim,
+            in_dim=self.encoding_config.out_dim,
             num_layers=self.num_layers_base,
             hidden_dim=self.hidden_dim,
             out_dim=1 + self.geo_feat_dim,
@@ -79,8 +112,9 @@ class FruitFieldConfig:
 def init_fruit_field(
     config: FruitFieldConfig, generator: torch.Generator, device
 ) -> dict:
+    init_table = init_hash_table if config.encoding == "hash" else init_grid_table
     return {
-        "grid_table": init_grid_table(config.grid, generator, device),
+        config.table_key: init_table(config.encoding_config, generator, device),
         "base_mlp": init_mlp(config.base_mlp, generator, device),
         "color_mlp": init_mlp(config.color_mlp, generator, device),
         "semantic_mlp": init_mlp(config.semantic_mlp, generator, device),
@@ -108,7 +142,8 @@ def get_density(
         if aabb is None:
             raise ValueError("get_density(contraction=False) needs an aabb")
         pos01, selector = normalize_aabb_to_unit(positions, aabb)
-    h = grid_encode(params["grid_table"], pos01, config.grid)
+    encode = hash_encode if config.encoding == "hash" else grid_encode
+    h = encode(params[config.table_key], pos01, config.encoding_config)
     out = apply_mlp(params["base_mlp"], h, config.base_mlp, config.compute_dtype)
     density = trunc_exp(out[..., 0] + config.density_bias) * selector
     return density, out[..., 1:]

@@ -22,6 +22,12 @@ from ..core.render import (
     semantic_colormap,
 )
 from ..core.samplers import proposal_sample, spaced_samples
+from ..fields.density_field import (
+    DensityFieldConfig,
+    density_field_forward,
+    init_density_field,
+)
+from ..fields.encodings import HashEncodingConfig
 from ..fields.freq_density_field import (
     FreqDensityFieldConfig,
     freq_density_field_forward,
@@ -29,12 +35,20 @@ from ..fields.freq_density_field import (
 )
 from ..fields.fruit_field import FruitFieldConfig, fruit_field_forward, init_fruit_field
 
+
 @dataclasses.dataclass(frozen=True)
 class FruitModelConfig:
     field: FruitFieldConfig
-    # frequency-MLP proposal fields (configs.TPU_PROPOSAL_NETS); the JAX
-    # twin's default hash DensityField proposals are still to port
-    proposal_nets: tuple
+    # hash-grid DensityFields (the reference's two HashMLPDensityFields), or
+    # the grid variant's frequency-MLP fields (configs.TPU_PROPOSAL_NETS)
+    proposal_nets: tuple = (
+        DensityFieldConfig(
+            hash=HashEncodingConfig(num_levels=5, log2_hashmap_size=17, base_res=16, max_res=128)
+        ),
+        DensityFieldConfig(
+            hash=HashEncodingConfig(num_levels=5, log2_hashmap_size=17, base_res=16, max_res=256)
+        ),
+    )
     num_nerf_samples: int = 48
     num_proposal_samples: tuple = (256, 96)
     near_plane: float = 0.05
@@ -59,13 +73,17 @@ class FruitModelConfig:
     proposal_warmup: int = 5000
     colormap_threshold: float = 0.9
 
-    def __post_init__(self):
-        for c in self.proposal_nets:
-            if not isinstance(c, FreqDensityFieldConfig):
-                raise NotImplementedError(
-                    f"proposal net {type(c).__name__}: only the frequency-MLP "
-                    "proposals are ported"
-                )
+
+def _init_proposal(config, generator: torch.Generator, device) -> dict:
+    if isinstance(config, FreqDensityFieldConfig):
+        return init_freq_density_field(config, generator, device)
+    return init_density_field(config, generator, device)
+
+
+def _proposal_forward(params: dict, positions: torch.Tensor, config) -> torch.Tensor:
+    if isinstance(config, FreqDensityFieldConfig):
+        return freq_density_field_forward(params, positions, config)
+    return density_field_forward(params, positions, config)
 
 
 def init_fruit_model(
@@ -74,7 +92,7 @@ def init_fruit_model(
     return {
         "field": init_fruit_field(config.field, generator, device),
         "proposal_networks": [
-            init_freq_density_field(c, generator, device) for c in config.proposal_nets
+            _init_proposal(c, generator, device) for c in config.proposal_nets
         ],
     }
 
@@ -115,7 +133,7 @@ def forward_train(
 
     def make_density_fn(i):
         def fn(positions):
-            d = freq_density_field_forward(
+            d = _proposal_forward(
                 params["proposal_networks"][i], positions, config.proposal_nets[i]
             )
             return d if (updated or not train) else d.detach()

@@ -20,7 +20,9 @@ the plain version for CPU tensors and launches the kernels
 (``csrc/cell_encode.cu``, ``csrc/corner_encode.cu``) for CUDA tensors;
 there is no fallback from one to the other. The kernels are compiled with
 nvcc for sm_90a at first use into
-``fruitnerf_tpu_torch/_build/<source hash>/`` and loaded with ctypes.
+``fruitnerf_tpu_torch/_build/<source hash>/`` and loaded with ctypes. The
+backward kernels sum dTable in 64-bit fixed point (``csrc/fixed_sum.cuh``),
+so a backward repeats bitwise.
 """
 from __future__ import annotations
 
@@ -254,8 +256,10 @@ def _find_nvcc() -> str:
 
 
 def _source_key(sources) -> str:
+    """Hash of the flags, the sources and the headers beside them."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources:
+    headers = sorted({x for s in sources for x in s.parent.glob("*.cuh")})
+    for path in [*sources, *headers]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -290,19 +294,22 @@ def build_library(sources, build_dir: Path) -> tuple[ctypes.CDLL, BuildInfo]:
         log_path.write_text(log)
         os.replace(tmp, lib_path)  # atomic: a racing build finds a whole file
     lib = ctypes.CDLL(str(lib_path))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     arr = ctypes.POINTER(ctypes.c_int)
     signatures = {
-        "cell_encode_fwd": [ptr, ptr, ptr, i32, i32, arr, arr, arr, arr, ptr],
-        "cell_encode_bwd": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, arr, arr, arr, arr, ptr],
-        "corner_encode_fwd": [ptr, ptr, ptr, i32, i32, i32, arr, arr, arr, arr, ptr],
-        "corner_encode_bwd": [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, arr, arr, arr, arr,
-                              ptr],
+        "cell_encode_fwd": ([ptr, ptr, ptr, i32, i32, arr, arr, arr, arr, ptr], i32),
+        "cell_encode_bwd": ([ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, arr, arr, arr, arr,
+                             ptr], i32),
+        "cell_encode_bwd_work_bytes": ([i64, i32], i64),
+        "corner_encode_fwd": ([ptr, ptr, ptr, i32, i32, i32, arr, arr, arr, arr, ptr], i32),
+        "corner_encode_bwd": ([ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, arr, arr, arr,
+                               arr, ptr], i32),
+        "corner_encode_bwd_work_bytes": ([i64, i32, i32], i64),
     }
-    for name, argtypes in signatures.items():
-        if hasattr(lib, name):  # a library of one source has that source's pair
+    for name, (argtypes, restype) in signatures.items():
+        if hasattr(lib, name):  # a library of one source has that source's functions
             getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = i32
+            getattr(lib, name).restype = restype
     info = BuildInfo(lib_path, seconds, log_path.read_text() if log_path.exists() else "")
     return lib, info
 
@@ -341,7 +348,7 @@ def _level_arrays(layout: CellLayout):
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device, align: int = 4):
     """The cell kernels read the table as float4 (16-byte aligned); the
     corner kernels read table rows as float2 or float4 where F is 2, 4 or
-    8, and add dTable rows with vector atomics there."""
+    8."""
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != torch.float32:
@@ -352,6 +359,12 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device, align
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.data_ptr() % align:
         raise ValueError(f"{name}: expected a {align}-byte aligned tensor")
+
+
+def _work(nbytes: int, device: torch.device) -> torch.Tensor:
+    """A backward kernel's work buffer: its fixed-point dTable sums and
+    column maxima, which the kernel zeroes itself."""
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
 
 
 def _raise_on(err: int, what: str):
@@ -388,14 +401,15 @@ def cell_encode_bwd_cuda(
     _check("table", table, (layout.total_rows, 16), dev, align=16)
     _check("positions", positions, (p, 3), dev)
     _check("grad", grad, (p, 2 * layout.num_levels), dev)
-    dtable = torch.zeros_like(table)
+    dtable = torch.empty_like(table)
     dpos = torch.empty_like(positions) if needs_pos_grad else None
+    work = _work(_lib().cell_encode_bwd_work_bytes(layout.total_rows, layout.num_levels), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().cell_encode_bwd(
         positions.data_ptr(), table.data_ptr(), grad.data_ptr(),
         dtable.data_ptr(), dpos.data_ptr() if needs_pos_grad else None,
-        p, int(needs_pos_grad), layout.num_levels, *_level_arrays(layout),
-        stream,
+        work.data_ptr(), p, int(needs_pos_grad), layout.num_levels,
+        *_level_arrays(layout), stream,
     )
     _raise_on(err, "cell_encode_bwd")
     LAUNCHES["cell_encode_bwd"] += 1
@@ -478,13 +492,15 @@ def corner_encode_bwd_cuda(
     _check("table", table, (layout.total_rows, features), dev, align=16)
     _check("positions", positions, (p, 3), dev)
     _check("grad", grad, (p, features * layout.num_levels), dev)
-    dtable = torch.zeros_like(table)
+    dtable = torch.empty_like(table)
     dpos = torch.empty_like(positions) if needs_pos_grad else None
+    work = _work(_lib().corner_encode_bwd_work_bytes(
+        layout.total_rows, features, layout.num_levels), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().corner_encode_bwd(
         positions.data_ptr(), table.data_ptr(), grad.data_ptr(),
         dtable.data_ptr(), dpos.data_ptr() if needs_pos_grad else None,
-        p, features, int(needs_pos_grad), layout.num_levels,
+        work.data_ptr(), p, features, int(needs_pos_grad), layout.num_levels,
         *_level_arrays(layout), stream,
     )
     _raise_on(err, "corner_encode_bwd")

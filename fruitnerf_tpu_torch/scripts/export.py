@@ -5,8 +5,8 @@
         --num-points-per-side 1000
 
 The run's manifest rebuilds the training config (preset, variant, config
-overrides) and its grid layout, which must match; the latest checkpoint
-supplies the parameters. Writes ``semantic.ply``, ``semantic_colormap.ply``
+overrides) and its field's encoding and layout, which must match; the
+latest checkpoint supplies the parameters. Writes ``semantic.ply``, ``semantic_colormap.ply``
 and ``density.ply`` into ``--output-dir``. It runs on the card unless
 ``--device cpu`` asks for the CPU.
 """
@@ -56,7 +56,7 @@ def add_args(p: argparse.ArgumentParser):
 
 
 def main(args):
-    from ..configs import apply_overrides, get_preset
+    from ..configs import apply_overrides, run_preset
     from ..engine.checkpoints import grid_from_manifest, read_manifest, resume_from_latest
     from ..engine.trainer import init_train_state
     from ..export.volume_sampler import ExportConfig, sample_volume
@@ -76,9 +76,9 @@ def main(args):
     manifest = read_manifest(run_dir)
     preset, num_images = manifest["preset"], manifest["num_images"]
     variant = manifest.get("variant", "tpu")
-    config = get_preset(preset, num_images=num_images, variant=variant)
+    config = run_preset(preset, num_images, variant)
     config = apply_overrides(config, manifest.get("config_overrides", {}))
-    grid_from_manifest(manifest, expect=config.model.field.grid)
+    grid_from_manifest(manifest, expect=config.model.field.encoding_config)
 
     state, resumed = resume_from_latest(
         run_dir / "checkpoints", init_train_state(config, num_images, dev)

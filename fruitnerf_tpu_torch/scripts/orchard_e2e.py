@@ -185,7 +185,7 @@ def _rate(steps: int, rays_per_step: int, seconds: float | None):
 def main(args):
     import torch
 
-    from ..configs import apply_overrides, get_preset
+    from ..configs import apply_overrides, run_preset
     from ..counting.clustering import FruitClustering, evaluate_against_gt
     from ..data.builder import dataset_from_scene
     from ..data.synthetic import cached_render_scene, orchard_config
@@ -217,11 +217,11 @@ def main(args):
     train_set = set(data.train_indices.tolist())
     eval_idx = np.asarray([i for i in range(n) if i not in train_set] or [0])
 
-    config = get_preset(args.preset, num_images=n, variant=args.variant)
+    config = run_preset(args.preset, n, args.variant)
     config = dataclasses.replace(config, max_iters=args.iters)
     overrides = cli_overrides(args)
     config = apply_overrides(config, overrides)
-    grid = config.model.field.grid
+    grid = config.model.field.encoding_config
     elevation = [float(e) for e in cfg_scene.camera_elevation]
 
     ckpt_dir = out / "checkpoints"

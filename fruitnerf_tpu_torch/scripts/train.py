@@ -51,7 +51,7 @@ def add_args(p: argparse.ArgumentParser):
 def main(args):
     import torch
 
-    from ..configs import apply_overrides, get_preset
+    from ..configs import apply_overrides, run_preset
     from ..data.builder import dataset_from_scene
     from ..data.synthetic import SyntheticSceneConfig, render_scene
     from ..engine.checkpoints import resume_from_latest, write_manifest
@@ -72,7 +72,7 @@ def main(args):
 
     scene = render_scene(SyntheticSceneConfig(num_cameras=24, image_size=128), device=dev)
     num_images = scene["images"].shape[0]
-    config = get_preset(args.preset, num_images=num_images, variant=args.variant)
+    config = run_preset(args.preset, num_images, args.variant)
     split = (config.train_split_fraction if args.train_split_fraction is None
              else args.train_split_fraction)
     data = dataset_from_scene(scene, dev, train_fraction=split)
@@ -90,7 +90,7 @@ def main(args):
     write_manifest(
         out_dir, preset=config.preset, dataparser_transform=np.eye(4)[:3],
         dataparser_scale=1.0, scene_aabb=np.array([[-1.0] * 3, [1.0] * 3]),
-        num_images=num_images, grid=config.model.field.grid,
+        num_images=num_images, grid=config.model.field.encoding_config,
         extra={"variant": args.variant, "max_iters": config.max_iters,
                "train_split_fraction": split, "config_overrides": overrides},
     )

@@ -29,7 +29,9 @@ def test_grid_variant_params_round_trip():
     state = jax_init_train_state(jax.random.PRNGKey(0), jcfg, 5)
     tree = jax.tree.map(np.asarray, state.params)
     grid = GridEncodingConfig(**GRID)
-    params = bridge.params_from_jax(tree, grid, torch.device("cpu"))
+    model = dataclasses.replace(configs.fruit_nerf(5).model, field=dataclasses.replace(
+        configs.fruit_nerf(5).model.field, grid=grid))
+    params = bridge.params_from_jax(tree, model, torch.device("cpu"))
 
     field = params["model"]["field"]
     assert field["grid_table"].shape == (grid.cell_layout().total_rows, 16)
@@ -42,7 +44,7 @@ def test_grid_variant_params_round_trip():
     )
     assert len(params["model"]["proposal_networks"]) == 2
 
-    back = bridge.params_to_jax(params, grid)
+    back = bridge.params_to_jax(params, model)
     flat_a, def_a = jax.tree.flatten(tree)
     flat_b, def_b = jax.tree.flatten(
         jax.tree.map(np.asarray, back, is_leaf=lambda x: isinstance(x, np.ndarray))
@@ -59,8 +61,10 @@ def test_bridge_rejects_a_mismatched_layout():
     tree = jax.tree.map(np.asarray, jax_init_train_state(
         jax.random.PRNGKey(0), _small_jax_config(), 5).params)
     wrong = GridEncodingConfig(**dict(GRID, mid_table_size=None))
+    model = configs.fruit_nerf(5).model
+    model = dataclasses.replace(model, field=dataclasses.replace(model.field, grid=wrong))
     with pytest.raises(ValueError, match="layout wants"):
-        bridge.params_from_jax(tree, wrong, torch.device("cpu"))
+        bridge.params_from_jax(tree, model, torch.device("cpu"))
 
 
 def _shared_fields(a, b, skip=()):
@@ -97,7 +101,7 @@ def test_preset_and_overrides_match_jax(overrides):
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match="grid"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         configs.fruit_nerf(3, variant="tpu")
     with pytest.raises(ValueError, match="power of two"):
         GridEncodingConfig(table_size=3000)

@@ -204,9 +204,11 @@ def test_reads_a_flax_checkpoint(tmp_path, grid):
     path = tmp_path / "ckpt_000001234.msgpack"
     path.write_bytes(flax.serialization.to_bytes(jstate))
     tgrid = GridEncodingConfig(**grid)
-    params, step = ck.read_jax_checkpoint(path, tgrid, "cpu")
+    tmodel = configs.fruit_nerf(N_CAMS).model
+    tmodel = dataclasses.replace(tmodel, field=dataclasses.replace(tmodel.field, grid=tgrid))
+    params, step = ck.read_jax_checkpoint(path, tmodel, "cpu")
     assert step == 1234
-    want = bridge.params_from_jax(jax.tree.map(np.asarray, jstate.params), tgrid, "cpu")
+    want = bridge.params_from_jax(jax.tree.map(np.asarray, jstate.params), tmodel, "cpu")
     assert params["model"]["field"]["grid_table"].shape == tgrid.table_shape
     got_leaves, want_leaves = bridge.tree_leaves(params), bridge.tree_leaves(want)
     assert len(got_leaves) == len(want_leaves)

@@ -25,6 +25,7 @@ from fruitnerf_tpu_torch.data.builder import dataset_from_scene
 from fruitnerf_tpu_torch.engine import trainer
 from fruitnerf_tpu_torch.fields import encodings as tenc
 from fruitnerf_tpu_torch.fields import fruit_field as tff
+from fruitnerf_tpu_torch.models.fruit_model import FruitModelConfig
 
 ATOL = 1e-5  # float32 field outputs of O(1)
 GRAD_RTOL = 1e-4  # per leaf, relative to its max |g|
@@ -65,7 +66,7 @@ def test_corner_field_forward_and_grads_match_jax(features):
     (_, jout), jg = jax.value_and_grad(jloss, has_aux=True)(jparams)
     tparams = bridge.params_from_jax(
         {"model": {"field": jparams, "proposal_networks": []}, "camera_opt": np.zeros((1, 6))},
-        tcfg.grid, "cpu")["model"]["field"]
+        FruitModelConfig(field=tcfg, proposal_nets=()), "cpu")["model"]["field"]
     tparams = bridge.tree_map(tparams, lambda t: t.requires_grad_(True))
     assert tparams["grid_table"].shape == tcfg.grid.table_shape
     tout = tff.fruit_field_forward(tparams, torch.from_numpy(pos), torch.from_numpy(dirs),
@@ -103,11 +104,11 @@ def test_corner_train_step_matches_jax():
     key = jax.random.PRNGKey(1)
     jnew, jm = jtrainer.make_train_step(jcfg)(jstate, jdata, key)
     tstate = trainer.init_train_state(
-        tcfg, N_CAMS, "cpu", params=bridge.params_from_jax(params0, tgrid, "cpu"))
+        tcfg, N_CAMS, "cpu", params=bridge.params_from_jax(params0, tcfg.model, "cpu"))
     tm = trainer.train_step(tstate, dataset_from_scene(scene, "cpu"), tcfg,
                             draws=_jax_draws(key, 0, jcfg, jdata))
     _assert_losses_close(jm, tm)
-    errors = _grad_errors(jnew, tstate, tgrid)
+    errors = _grad_errors(jnew, tstate, tcfg.model)
     assert "/model/field/grid_table" in errors
     for path, (rel, _, _) in errors.items():
         assert rel <= GRAD_RTOL, (path, rel)

@@ -53,7 +53,7 @@ def models():
     tgrid = GridEncodingConfig(**GRID)
     tmodel = dataclasses.replace(
         tcfg.model, field=dataclasses.replace(tcfg.model.field, grid=tgrid))
-    tparams = bridge.params_from_jax(params, tgrid, "cpu")["model"]
+    tparams = bridge.params_from_jax(params, tmodel, "cpu")["model"]
     jparams = jax.tree.map(jnp.asarray, params["model"])
     return jmodel, jparams, tmodel, tparams
 

@@ -18,6 +18,7 @@ from fruitnerf_tpu_torch.fields import encodings as tenc
 from fruitnerf_tpu_torch.fields import freq_density_field as tfreq
 from fruitnerf_tpu_torch.fields import fruit_field as tff
 from fruitnerf_tpu_torch.fields import mlp as tmlp
+from fruitnerf_tpu_torch.models.fruit_model import FruitModelConfig
 
 ATOL = 1e-5  # float32 MLP outputs of O(1)
 GRAD_RTOL = 1e-4  # parameter gradients, relative to each one's max magnitude
@@ -119,7 +120,7 @@ def test_fruit_field_forward_on_bridged_params(train):
     (_, jout), jg = jax.value_and_grad(jloss, has_aux=True)(jparams)
     tparams = _tree_t(bridge.params_from_jax(
         {"model": {"field": jparams, "proposal_networks": []}, "camera_opt": np.zeros((1, 6))},
-        tcfg.grid, "cpu")["model"]["field"])
+        FruitModelConfig(field=tcfg, proposal_nets=()), "cpu")["model"]["field"])
     tout = tff.fruit_field_forward(tparams, _t(pos), _t(dirs), _t(ci), tcfg, train=train)
     sum(torch.sum(tout[k] * _t(probe[k])) for k in probe).backward()
     for k in probe:

@@ -2,13 +2,16 @@
 grid_encode_flat) against their plain PyTorch versions, on a card: the
 tiled kernels also at ray-ordered points, with every point in one cell
 (and the corner kernels at hash collisions inside a warp and at F = 1 to
-8), at 1 to 32 levels and at a P that is no multiple of their tile. Every
-test here is marked ``gpu`` and skips without one. This file
-imports no JAX, so it runs on the GPU machine, which has none:
+8), at 1 to 32 levels and at a P that is no multiple of their tile; the
+corner kernels at the parity variant's hash layouts through ``hash_encode``;
+and two training runs from one seed, which must be bitwise equal. Every test
+here is marked ``gpu`` and skips without one.
+This file imports no JAX, so it runs on the GPU machine, which has none:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
 
 (``--noconftest`` skips tests/conftest.py, which imports JAX.)"""
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +20,7 @@ from fruitnerf_tpu_torch.fields.encodings import GridEncodingConfig
 from fruitnerf_tpu_torch.ops import hash_grid as hg
 
 FWD_ATOL = 1e-5  # float32 sums of 8 products of O(1) values
-BWD_RTOL = 1e-4  # relative to each gradient's max; atomics reorder the sums
+BWD_RTOL = 1e-4  # relative to each gradient's max; the sums' orders and roundings differ
 
 pytestmark = pytest.mark.gpu
 
@@ -124,8 +127,9 @@ def _points(dev, g, kind, n_rays=64, samples=48, extra=13):
 @pytest.mark.parametrize("num_levels", [1, 5, 16, 32])
 def test_tiled_cell_kernels_match_plain(dev, num_levels, kind):
     """The tiled K1/K2 (a warp a level, a lane a point, runs of lanes on one
-    row merged into float4 atomics) against the plain version, with and
-    without dPositions."""
+    row merged before their fixed-point adds) against the plain version,
+    with and without dPositions; the second backward repeats the first's
+    dTable bitwise."""
     layout = _levels(num_levels)
     assert layout.direct[0] and layout.rows[0] == 4096
     g = torch.Generator(device=dev).manual_seed(num_levels)
@@ -142,7 +146,7 @@ def test_tiled_cell_kernels_match_plain(dev, num_levels, kind):
     dt, dp = hg.cell_encode_bwd_cuda(table, pos, grad, layout, True)
     assert _rel(dt, t_.grad) <= BWD_RTOL and _rel(dp, p_.grad) <= BWD_RTOL
     dt_only, none = hg.cell_encode_bwd_cuda(table, pos, grad, layout, False)
-    assert none is None and _rel(dt_only, t_.grad) <= BWD_RTOL
+    assert none is None and torch.equal(dt_only, dt)
 
 
 # corner mode: a direct level whose corners fill their table (8^3 = 512
@@ -223,8 +227,9 @@ def _corner_points(dev, g, kind, layout, n_rays=64, samples=48, extra=13):
 @pytest.mark.parametrize("kind", ["ray_ordered", "one_cell", "collision"])
 def test_tiled_corner_kernels_match_plain(dev, kind, num_levels, features):
     """The tiled K3/K4 (a warp a level, a lane a point, runs of lanes in one
-    cell merged into vector atomics) against the plain version, with and
-    without dPositions."""
+    cell merged before their fixed-point adds) against the plain version,
+    with and without dPositions; the second backward repeats the first's
+    dTable bitwise."""
     layout = _corner_levels(num_levels)
     assert layout.direct[0] and (num_levels == 1 or not layout.direct[-1])
     g = torch.Generator(device=dev).manual_seed(100 * num_levels + features)
@@ -241,7 +246,55 @@ def test_tiled_corner_kernels_match_plain(dev, kind, num_levels, features):
     dt, dp = hg.corner_encode_bwd_cuda(table, pos, grad, layout, features, True)
     assert _rel(dt, t_.grad) <= BWD_RTOL and _rel(dp, p_.grad) <= BWD_RTOL
     dt_only, none = hg.corner_encode_bwd_cuda(table, pos, grad, layout, features, False)
-    assert none is None and _rel(dt_only, t_.grad) <= BWD_RTOL
+    assert none is None and torch.equal(dt_only, dt)
+
+
+@pytest.mark.parametrize("family", ["cell", "corner"])
+def test_backward_sums_dtable_in_fixed_point(dev, family):
+    """K2 and K4 sum dTable in 64-bit fixed point at a power-of-two scale
+    a gradient column (csrc/fixed_sum.cuh), at every point in one cell (the
+    most adds onto one entry): launches repeat bitwise; the scale follows
+    the gradient's magnitude; a NaN in one column of the gradient makes that
+    column of dTable NaN and leaves every other entry as it was; no points
+    give a zero dTable."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    if family == "cell":
+        layout = _levels(5)
+        table = torch.rand((layout.total_rows, 16), generator=g, device=dev) * 2 - 1
+
+        def bwd(t, p, gr):
+            return hg.cell_encode_bwd_cuda(t, p, gr, layout, True)
+
+        def plain(t, p):
+            return hg.cell_encode_torch(t, p, layout)
+    else:
+        layout = _corner_levels(5)
+        table = torch.rand((layout.total_rows, 2), generator=g, device=dev) * 2 - 1
+
+        def bwd(t, p, gr):
+            return hg.corner_encode_bwd_cuda(t, p, gr, layout, 2, True)
+
+        def plain(t, p):
+            return hg.grid_encode_corner_torch(t, p, layout, 2)
+    pos = _points(dev, g, "one_cell")
+    grad = torch.randn((pos.shape[0], 2 * layout.num_levels), generator=g, device=dev)
+    dt, dp = bwd(table, pos, grad)
+    for _ in range(3):
+        again = bwd(table, pos, grad)
+        assert torch.equal(again[0], dt) and torch.equal(again[1], dp)
+    for scale in (1e-20, 1e20):
+        t_ = table.clone().requires_grad_(True)
+        plain(t_, pos).backward(grad * scale)
+        assert _rel(bwd(table, pos, grad * scale)[0], t_.grad) <= BWD_RTOL
+    bad = grad.clone()
+    bad[7, 3] = float("nan")  # level 1, feature 1
+    dt_bad = bwd(table, pos, bad)[0]
+    column = torch.zeros_like(dt, dtype=torch.bool)
+    column[layout.offsets[1]:layout.offsets[1] + layout.rows[1], 1::2] = True
+    assert dt_bad[column].isnan().all()
+    assert torch.equal(dt_bad[~column], dt[~column])
+    dt0, dp0 = bwd(table, pos[:0], grad[:0])
+    assert dp0.shape == (0, 3) and not dt0.any()
 
 
 def test_corner_autograd_function_and_launch_counts(dev):
@@ -354,3 +407,67 @@ def test_sample_volume_on_the_card_matches_the_cpu(dev, tmp_path):
         rg, rc = np.searchsorted(ig, common), np.searchsorted(ic, common)
         np.testing.assert_allclose(g["points"][rg], c["points"][rc], atol=1e-6, rtol=0)
         np.testing.assert_allclose(g["colors"][rg], c["colors"][rc], atol=1e-5, rtol=0)
+
+
+def _hash_layouts():
+    """(name, HashEncodingConfig) of the parity variant's three hash grids."""
+    from fruitnerf_tpu_torch.configs import fruit_nerf
+
+    m = fruit_nerf(1, variant="parity").model
+    return [("main", m.field.hash)] + [(f"proposal{i}", p.hash)
+                                       for i, p in enumerate(m.proposal_nets)]
+
+
+@pytest.mark.parametrize("kind", ["random", "ray_ordered"])
+@pytest.mark.parametrize("name", ["main", "proposal0", "proposal1"])
+def test_corner_kernels_at_the_parity_layouts(dev, name, kind):
+    """K3/K4 at the parity variant's layouts (the main field: 16 levels,
+    T = 2^19, 5 direct levels, a 64 MiB table; each proposal field: 5
+    levels, T = 2^17) against the plain version, through the hash field's
+    entry ``hash_encode``: its values, and its dTable and dPositions."""
+    from fruitnerf_tpu_torch.fields.encodings import hash_encode
+
+    enc = dict(_hash_layouts())[name]
+    layout = enc.table_layout()
+    assert layout.direct[0] and not layout.direct[-1]
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    table = torch.rand(enc.table_shape, generator=g, device=dev) * 2 - 1
+    pos = (torch.rand((20000, 3), generator=g, device=dev) * 0.999 if kind == "random"
+           else _points(dev, g, "ray_ordered"))
+    grad = torch.randn((pos.shape[0], enc.out_dim), generator=g, device=dev)
+    t_k, p_k = table.clone().requires_grad_(True), pos.clone().requires_grad_(True)
+    before = dict(hg.LAUNCHES)
+    out = hash_encode(t_k, p_k, enc)
+    out.backward(grad)
+    assert hg.LAUNCHES["corner_encode_fwd"] == before["corner_encode_fwd"] + 1
+    assert hg.LAUNCHES["corner_encode_bwd"] == before["corner_encode_bwd"] + 1
+    t_p, p_p = table.clone().requires_grad_(True), pos.clone().requires_grad_(True)
+    ref = hg.grid_encode_corner_torch(t_p, p_p, layout, enc.features_per_level)
+    ref.backward(grad)
+    torch.testing.assert_close(out, ref, atol=FWD_ATOL, rtol=0)
+    assert _rel(t_k.grad, t_p.grad) <= BWD_RTOL and _rel(p_k.grad, p_p.grad) <= BWD_RTOL
+
+
+@pytest.mark.parametrize("preset", ["fruit_nerf", "fruit_nerf_smoke"])
+def test_training_repeats_under_one_seed(dev, preset):
+    """Five train steps, twice, from one seed and on the same draws, on the
+    kernels (K1/K2 on the cell-mode preset, K3/K4 on the smoke preset's hash
+    grids): every loss and every parameter is bitwise equal. The backward
+    kernels sum dTable in fixed point, and the samplers' rowwise gather
+    (``core.math.take_sorted``) is an index whose CUDA backward sums in a
+    sorted order, so nothing on the step depends on the order of atomics."""
+    from fruitnerf_tpu_torch.configs import apply_overrides, get_preset
+    from fruitnerf_tpu_torch.data.builder import dataset_from_scene
+    from fruitnerf_tpu_torch.data.synthetic import SyntheticSceneConfig, render_scene
+    from fruitnerf_tpu_torch.scripts.step_bench import two_runs
+
+    scene = render_scene(SyntheticSceneConfig(image_size=64, num_cameras=8), device=dev)
+    data = dataset_from_scene(scene, dev)
+    cfg = get_preset(preset, data.cameras.num_cameras)
+    if preset == "fruit_nerf":
+        cfg = apply_overrides(cfg, {"sparsity_loss": 0.005})
+    family = "cell" if preset == "fruit_nerf" else "corner"
+    before = hg.LAUNCHES[f"{family}_encode_bwd"]
+    r = two_runs(cfg, data, seed=0)
+    assert hg.LAUNCHES[f"{family}_encode_bwd"] > before
+    assert r["bitwise"], r

@@ -20,7 +20,10 @@ import torch
 from fruitnerf_tpu import native as jax_native
 from fruitnerf_tpu_torch import __main__ as port_cli
 from fruitnerf_tpu_torch import configs, native
+from fruitnerf_tpu_torch.core.rays import RayBundle
 from fruitnerf_tpu_torch.export.ply import read_ply, write_ply
+from fruitnerf_tpu_torch.fields.density_field import DensityFieldConfig
+from fruitnerf_tpu_torch.models.fruit_model import forward_train, init_fruit_model
 from fruitnerf_tpu_torch.scripts import count
 
 REPO = Path(__file__).resolve().parents[1]
@@ -174,12 +177,33 @@ def test_unported_options_raise(argv, item):
         port_cli.main(argv)
 
 
+SERVED = {("fruit_nerf_smoke", "grid"), ("fruit_nerf", "parity")}
+
+
 @pytest.mark.parametrize("name, variant", [("fruit_nerf_big", "grid"), ("fruit_nerf_smoke", "grid"),
                                            ("fruit_nerf", "tpu"), ("fruit_nerf", "parity")])
 def test_get_preset_serves_only_the_ported_preset(name, variant):
+    """The smoke preset (which takes no variant) and the parity variant build,
+    init and run one eval forward; the big preset and the tpu variant raise,
+    naming the ROADMAP item that ports them."""
     assert configs.get_preset("fruit_nerf", 5) == configs.fruit_nerf(5)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        configs.get_preset(name, 5, variant=variant)
+    kw = {} if name == "fruit_nerf_smoke" else {"variant": variant}
+    if (name, variant) not in SERVED:
+        with pytest.raises(NotImplementedError, match="item 4"):
+            configs.get_preset(name, 5, **kw)
+        return
+    cfg = configs.get_preset(name, 5, **kw)
+    assert cfg.model.field.encoding == "hash"
+    assert all(isinstance(c, DensityFieldConfig) for c in cfg.model.proposal_nets)
+    params = init_fruit_model(cfg.model, torch.Generator().manual_seed(0), "cpu")
+    assert params["field"]["hash_table"].shape == cfg.model.field.hash.table_shape
+    g = torch.Generator().manual_seed(1)
+    bundle = RayBundle(torch.rand((4, 3), generator=g) - 0.5, torch.nn.functional.normalize(
+        torch.randn((4, 3), generator=g), dim=-1), torch.zeros(4), torch.full((4,), 2.0),
+        torch.zeros(4, dtype=torch.int64))
+    with torch.no_grad():
+        out = forward_train(params, bundle, cfg.model, None, step=0, train=False)
+    assert out["rgb"].shape == (4, 3) and bool(torch.isfinite(out["rgb"]).all())
 
 
 @pytest.mark.parametrize("argv", [

@@ -163,7 +163,7 @@ def test_evaluate_image_matches_jax(scene, data):
     params0["model"]["field"]["grid_table"] = params0["model"]["field"]["grid_table"] * 1e4
     jdata = jax_dataset_from_scene(scene, train_fraction=0.6)
     jstats, _ = jtrainer.evaluate_image(jax.tree.map(jnp.asarray, params0), jdata, 4, jcfg)
-    tparams = bridge.params_from_jax(params0, tcfg.model.field.grid, "cpu")
+    tparams = bridge.params_from_jax(params0, tcfg.model, "cpu")
     tstats, out = trainer.evaluate_image(tparams, data, 4, tcfg)
     assert out["rgb"].shape == (16, 16, 3)
     for k in ("psnr", "ssim", "iou", "iou_reference_quirk"):

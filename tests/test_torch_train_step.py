@@ -104,9 +104,10 @@ def _jax_draws(key, step, cfg, data) -> trainer.StepDraws:
     )
 
 
-def _jax_grads(opt_state, grid):
+def _jax_grads(opt_state, model):
     """After one step from zero moments Adam's mu is (1 - b1) * g: recover
-    the JAX gradients from the per-group Adam states."""
+    the JAX gradients from the per-group Adam states, in the port's layout
+    (``model``: the port's FruitModelConfig)."""
     adam = [s.mu for s in jax.tree.leaves(
         opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
         if isinstance(s, optax.ScaleByAdamState)]
@@ -116,9 +117,7 @@ def _jax_grads(opt_state, grid):
         return np.asarray(a) / np.float32(0.1)
 
     g = jax.tree.map(pick, *adam, is_leaf=lambda x: isinstance(x, optax.MaskedNode))
-    g["model"]["field"]["grid_table"] = bridge.table_from_jax(
-        g["model"]["field"]["grid_table"], grid)
-    return g
+    return bridge.tree_map(bridge.params_from_jax(g, model, "cpu"), lambda t: t.numpy())
 
 
 def _leaves(a, b, path=""):
@@ -137,21 +136,21 @@ def _one_step(setup, step):
     key = jax.random.PRNGKey(1)
     jstate = jax.tree.map(jnp.array, setup["jstate"]).replace(step=jnp.asarray(step, jnp.int32))
     jnew, jmetrics = setup["step_fn"](jstate, setup["jdata"], key)
-    grid = tcfg.model.field.grid
     tstate = trainer.init_train_state(
-        tcfg, N_CAMS, "cpu", params=bridge.params_from_jax(setup["params0"], grid, "cpu"))
+        tcfg, N_CAMS, "cpu", params=bridge.params_from_jax(setup["params0"], tcfg.model, "cpu"))
     tstate.step = step
     tmetrics = trainer.train_step(
         tstate, setup["tdata"], tcfg, draws=_jax_draws(key, step, jcfg, setup["jdata"]))
     return jnew, jmetrics, tstate, tmetrics
 
 
-def _grad_errors(jnew, tstate, grid):
-    """{leaf path: (max |g_port - g_jax| / max |g_jax|, g_jax, g_port)}."""
+def _grad_errors(jnew, tstate, model):
+    """{leaf path: (max |g_port - g_jax| / max |g_jax|, g_jax, g_port)};
+    ``model``: the port's FruitModelConfig."""
     tgrads = bridge.tree_map(tstate.params, lambda t: t.grad.numpy())
     return {
         path: (np.abs(gt - gj).max() / max(np.abs(gj).max(), 1e-30), gj, gt)
-        for path, gj, gt in _leaves(_jax_grads(jnew.opt_state, grid), tgrads)
+        for path, gj, gt in _leaves(_jax_grads(jnew.opt_state, model), tgrads)
     }
 
 
@@ -166,7 +165,7 @@ def test_first_step_losses_and_grads_match_jax(setup):
     place the fine samples alike; every gradient leaf is compared."""
     jnew, jm, tstate, tm = _one_step(setup, 0)
     _assert_losses_close(jm, tm)
-    for path, (rel, _, _) in _grad_errors(jnew, tstate, setup["tcfg"].model.field.grid).items():
+    for path, (rel, _, _) in _grad_errors(jnew, tstate, setup["tcfg"].model).items():
         assert rel <= GRAD_RTOL, (path, rel)
 
 
@@ -186,7 +185,7 @@ def test_gated_step_matches_jax(setup):
     they are gated off, and their gradients are zero on both sides."""
     jnew, jm, tstate, tm = _one_step(setup, 2001)
     _assert_losses_close(jm, tm)
-    errors = _grad_errors(jnew, tstate, setup["tcfg"].model.field.grid)
+    errors = _grad_errors(jnew, tstate, setup["tcfg"].model)
     for path, (rel, gj, gt) in errors.items():
         if path.startswith("/model/proposal_networks"):
             assert not gt.any() and not gj.any(), path
@@ -196,11 +195,11 @@ def test_gated_step_matches_jax(setup):
 
 def test_one_step_post_adam_params_match_jax(setup):
     jnew, _, tstate, _ = _one_step(setup, 0)
-    grid = setup["tcfg"].model.field.grid
-    gj_tree = _jax_grads(jnew.opt_state, grid)
-    pj = jax.tree.map(np.asarray, jnew.params)
-    pj["model"]["field"]["grid_table"] = bridge.grid_table_from_jax(
-        pj["model"]["field"]["grid_table"], grid)
+    model = setup["tcfg"].model
+    gj_tree = _jax_grads(jnew.opt_state, model)
+    pj = bridge.tree_map(
+        bridge.params_from_jax(jax.tree.map(np.asarray, jnew.params), model, "cpu"),
+        lambda t: t.numpy())
     tparams = bridge.tree_map(tstate.params, lambda t: t.detach().numpy())
     tgrads = bridge.tree_map(tstate.params, lambda t: t.grad.numpy())
     flips_total = 0
@@ -223,9 +222,9 @@ def test_ten_steps_track_jax(setup):
     past ~30 steps float32 differences compound)."""
     key = jax.random.PRNGKey(1)
     jstate = jax.tree.map(jnp.array, setup["jstate"])
-    tcfg, grid = setup["tcfg"], setup["tcfg"].model.field.grid
+    tcfg = setup["tcfg"]
     tstate = trainer.init_train_state(
-        tcfg, N_CAMS, "cpu", params=bridge.params_from_jax(setup["params0"], grid, "cpu"))
+        tcfg, N_CAMS, "cpu", params=bridge.params_from_jax(setup["params0"], tcfg.model, "cpu"))
     for step in range(10):
         jstate, jm = setup["step_fn"](jstate, setup["jdata"], key)
         tm = trainer.train_step(tstate, setup["tdata"], tcfg,
@@ -270,7 +269,7 @@ def test_render_camera_matches_jax(setup):
     jcfg, tcfg = setup["jcfg"], setup["tcfg"]
     jout = jtrainer.render_camera(
         jax.tree.map(jnp.asarray, setup["params0"]), setup["jdata"].cameras, 2, jcfg)
-    tparams = bridge.params_from_jax(setup["params0"], tcfg.model.field.grid, "cpu")
+    tparams = bridge.params_from_jax(setup["params0"], tcfg.model, "cpu")
     tout = trainer.render_camera(tparams, setup["tdata"].cameras, 2, tcfg)
     for k in ("rgb", "accumulation", "depth", "semantics"):
         assert tout[k].shape == jout[k].shape, k
