@@ -6,7 +6,9 @@ grid (through ``train_loop``, with evals and checkpoints) for a few hundred
 steps each on a synthetic scene, and resume and render; then run the
 fruit-counting main path, ``orchard-e2e``, on the bench orchard, with the
 grid variant and with the parity variant (the reference's hash-grid
-network), and train the smoke preset through the ``train`` entry point.
+network), train the smoke preset through the ``train`` entry point, and
+run the disk capture workflow (train --data <dir>, eval, render, export,
+count) on the bench orchard written as a capture.
 
     python3 chip_smoke.py [--steps 400] [--seed 0]
     python3 chip_smoke.py --ab-cell-source OTHER/cell_encode.cu [--steps 200]
@@ -78,8 +80,19 @@ Phases, each printing its lines:
            REPEAT_STEPS steps from one seed on the same draws
            (scripts/step_bench.py:two_runs), which must be bitwise equal in
            every loss and parameter
+  disk     the bench orchard written as a capture tree (transforms.json,
+           explicit val split, an applied_scale of APPLIED_SCALE, an
+           images_2/ level; PNGs through Pillow): host seconds to parse and
+           load the frames, and to load CAPTURE_FRAMES frames at 1200x900;
+           scripts.train.main --data <tree> for DISK_ITERS full-width steps
+           (the manifest's transform and scale must equal a fresh parse, K1/K2
+           launches equal predicted_cell_launches), then eval with a tiny
+           LPIPS npz, render of a val camera (five panels read back), a probe
+           of the field at the fruits and the background, export in a crop
+           box at DISK_THRESHOLDS (more than half the fruit cloud within two
+           fruit radii of a GT centre) and count (in [1, 3 x GT])
 Then one JSON line of the six kernels (K1/K2's launches summed over the cell
-slice and the orchard phase's counted calls, K3/K4's over the corner slice,
+slice, the orchard phase's and the disk phase's counted calls, K3/K4's over the corner slice,
 the parity orchard and the smoke run; the K1-K4 entries also carry their
 step-layout numbers, K1's its export-batch ones, K3/K4's the parity
 layouts' at random points and at the parity step's), the card line,
@@ -1170,7 +1183,7 @@ def smoke_phase(dev, hg, name: str, seed: int) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with counted_calls(trainer, "train_loop", hg, counts):
-            state = train_cli.main(args)
+            state, _ = train_cli.main(args)
         wall = time.perf_counter() - t0
         records = [json.loads(x) for x in (Path(run_dir) / "metrics.jsonl").read_text().splitlines()]
         manifest = json.loads((Path(run_dir) / "manifest.json").read_text())
@@ -1197,6 +1210,323 @@ def smoke_phase(dev, hg, name: str, seed: int) -> dict:
     scene = render_scene(SyntheticSceneConfig(num_cameras=24, image_size=128, seed=seed), device=dev)
     repeat_check("smoke", cfg, dataset_from_scene(scene, dev), seed)
     return got
+
+
+# ---------------------------------------------------------------------------
+# the disk capture workflow: train --data <dir>, eval, render, export, count
+# ---------------------------------------------------------------------------
+
+DISK_ITERS = 2000  # the disk phase's steps
+APPLIED_SCALE = 0.5  # the capture's applied_scale: export lengths come out x 1/0.5
+DISK_EXPORT_N = 256
+# The crop box, in the export's probe frame (half the training frame): the
+# dataparser centres the orchard's cameras and scales them into the unit
+# box, which puts the canopy at |x|, |y| <= 0.11, z in [-0.36, -0.15].
+DISK_BOX = ((-0.16, -0.16, -0.42), (0.16, 0.16, -0.09))
+# Export thresholds (semantic logit, density, colormap sigmoid), picked from
+# a probe and a sweep of exports of a field trained DISK_ITERS steps (PERF.md
+# section 6): the reference's own, which gave the best count there.
+DISK_THRESHOLDS = (3.0, 70.0, 0.9)
+CAPTURE_FRAMES = 8  # frames at the dataparser's 1200 x 900 cap, for the load time
+
+
+def predicted_cell_launches(cfg, steps: int, eval_chunks: int) -> dict:
+    """K1/K2 launches of the grid variant (frequency proposal fields): each
+    train step encodes its fine samples and its sparsity points forward and
+    backward; each eval chunk encodes forward once."""
+    main = 1 + int(cfg.model.density_sparsity_mult > 0)
+    return {"cell_encode_fwd": steps * main + eval_chunks, "cell_encode_bwd": steps * main,
+            "corner_encode_fwd": 0, "corner_encode_bwd": 0}
+
+
+def lpips_npz(path: Path, seed: int) -> Path:
+    """A tiny 2-stage LPIPS weights file in utils/lpips.py's schema (no
+    pretrained weights exist here): stage 0 two convs 3->4->4, stage 1 one
+    conv 4->6, non-negative lin heads."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, s=0.3):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    np.savez(path, shift=np.array([-0.030, -0.088, -0.188], np.float32),
+             scale=np.array([0.458, 0.448, 0.450], np.float32),
+             stage0_conv0_w=r(4, 3, 3, 3), stage0_conv0_b=r(4, s=0.1),
+             stage0_conv1_w=r(4, 4, 3, 3), stage0_conv1_b=r(4, s=0.1),
+             stage1_conv0_w=r(6, 4, 3, 3), stage1_conv0_b=r(6, s=0.1),
+             lin0_w=np.abs(r(1, 4, 1, 1, s=1.0)), lin1_w=np.abs(r(1, 6, 1, 1, s=1.0)))
+    return path
+
+
+def half_resolution(tree: Path, scene: dict) -> tuple[np.ndarray, np.ndarray]:
+    """Write ``images_2/`` and ``masks_2/`` (the folders the dataparser maps
+    the fixture's ``images/`` and ``masks/`` to at downscale 2) from a 2x2
+    box average of the capture's frames; returns the uint8 stacks written."""
+    from PIL import Image
+
+    imgs = (np.clip(scene["images"], 0, 1) * 255).astype(np.uint8)
+    n, h, w, _ = imgs.shape
+    half = np.round(imgs.reshape(n, h // 2, 2, w // 2, 2, 3).astype(np.float32).mean((2, 4)))
+    half = half.astype(np.uint8)
+    masks = ((scene["masks"] > 0.5).reshape(n, h // 2, 2, w // 2, 2).mean((2, 4)) >= 0.5)
+    masks = (masks * 255).astype(np.uint8)
+    for d in ("images_2", "masks_2"):
+        (tree / d).mkdir()
+    for i in range(n):
+        Image.fromarray(half[i]).save(tree / "images_2" / f"frame_{i:05d}.png")
+        Image.fromarray(masks[i]).save(tree / "masks_2" / f"frame_{i:05d}.png")
+    return half, masks
+
+
+def capture_size_load(scene: dict, root: Path, dev) -> float:
+    """Seconds for ``dataset_from_parsed`` to load CAPTURE_FRAMES frames of
+    1200 x 900, the dataparser's automatic cap: orchard frames upsampled
+    (bilinear, so as smooth as a photograph) and saved with Pillow's default
+    adaptive row filters, as a capture's PNGs are."""
+    from PIL import Image
+
+    from fruitnerf_tpu_torch.data.builder import dataset_from_parsed
+    from fruitnerf_tpu_torch.data.dataparser import DataParserConfig, parse_transforms
+    from fruitnerf_tpu_torch.data.fixture import write_scene_capture
+
+    k = CAPTURE_FRAMES
+    frames = [np.asarray(Image.fromarray((np.clip(im, 0, 1) * 255).astype(np.uint8))
+                         .resize((1200, 900), Image.BILINEAR)) for im in scene["images"][:k]]
+    masks = [np.asarray(Image.fromarray((m > 0.5).astype(np.uint8) * 255)
+                        .resize((1200, 900), Image.NEAREST)) for m in scene["masks"][:k]]
+    s = 1200 / scene["width"]
+    big = dict(images=np.stack(frames).astype(np.float32) / 255.0,
+               masks=np.stack(masks).astype(np.float32) / 255.0, poses=scene["poses"][:k],
+               fx=scene["fx"] * s, fy=scene["fy"] * s, cx=600.0, cy=450.0, width=1200,
+               height=900)
+    write_scene_capture(big, root)
+    parsed = parse_transforms(DataParserConfig(data_dir=root))
+    check(set(parsed.width.tolist()) == {1200}, "the capture-size frames were downscaled")
+    t0 = time.perf_counter()
+    data = dataset_from_parsed(parsed, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    check(np.array_equal(data.images.cpu().numpy(), np.stack(frames)),
+          "the capture-size frames load wrongly")
+    return load_s
+
+
+def probe_field(state, cfg, box_points: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """Density and semantic logit of the trained field at points of the
+    export's probe frame (the AABB normalization export uses)."""
+    from fruitnerf_tpu_torch.fields.fruit_field import fruit_field_forward
+
+    dev = box_points.device
+    k = box_points.shape[0]
+    aabb = torch.tensor([[-1.0] * 3, [1.0] * 3], device=dev)
+    with torch.inference_mode():
+        out = fruit_field_forward(
+            state.params["model"]["field"], box_points[:, None, :],
+            torch.tensor([[0.0, 0.0, 1.0]], device=dev).expand(k, 3),
+            torch.zeros(k, dtype=torch.int64, device=dev), cfg.model.field, train=False,
+            contraction=False, aabb=aabb)
+    return (out["density"][:, 0].float().cpu().numpy(),
+            out["semantics"][:, 0, 0].float().cpu().numpy())
+
+
+def _pcts(x: np.ndarray) -> str:
+    return "/".join(f"{v:.3g}" for v in np.percentile(x, (10, 50, 90)))
+
+
+def disk_phase(dev, hg, name: str, seed: int) -> dict:
+    """The disk capture workflow through its entry points, on the bench
+    orchard written as a capture tree (``transforms.json``, PNG images and
+    masks through Pillow, explicit val split, applied_scale
+    APPLIED_SCALE, a 2x pyramid): ``train --data <tree>`` at full width,
+    ``eval`` with a tiny LPIPS npz, ``render``, ``export`` with a crop box,
+    ``count``. Returns the K1/K2 launches of its counted calls."""
+    from fruitnerf_tpu_torch.configs import apply_overrides, fruit_nerf
+    from fruitnerf_tpu_torch.data import synthetic
+    from fruitnerf_tpu_torch.data.builder import dataset_from_parsed
+    from fruitnerf_tpu_torch.data.dataparser import DataParserConfig, parse_transforms
+    from fruitnerf_tpu_torch.data.fixture import write_scene_capture
+    from fruitnerf_tpu_torch.engine import trainer
+    from fruitnerf_tpu_torch.engine.runs import load_run
+    from fruitnerf_tpu_torch.export import volume_sampler as vs
+    from fruitnerf_tpu_torch.scripts import count as count_cli
+    from fruitnerf_tpu_torch.scripts import evaluate as eval_cli
+    from fruitnerf_tpu_torch.scripts import export as export_cli
+    from fruitnerf_tpu_torch.scripts import render as render_cli
+    from fruitnerf_tpu_torch.scripts import train as train_cli
+
+    import PIL
+    from PIL import Image
+    print(f"disk: Pillow {PIL.__version__} reads and writes the capture's images")
+
+    def run(module, argv):
+        parser = argparse.ArgumentParser()
+        module.add_args(parser)
+        return module.main(parser.parse_args([str(a) for a in argv]))
+
+    cfg_scene = synthetic.orchard_config(**ORCHARD)
+    check(synthetic.scene_cache_path(cfg_scene).exists(), "the orchard scene is not cached")
+    scene = synthetic.cached_render_scene(cfg_scene, device=dev)  # the orchard phase's cache
+    n_cams, size = len(scene["poses"]), cfg_scene.image_size
+    counts: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tree, run_dir = tmp / "capture", tmp / "run"
+        t0 = time.perf_counter()
+        write_scene_capture(scene, tree, eval_fraction=0.1, applied_scale=APPLIED_SCALE)
+        half, half_masks = half_resolution(tree, scene)
+        write_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        parsed = parse_transforms(DataParserConfig(data_dir=tree))
+        parse_s = time.perf_counter() - t0
+        data = dataset_from_parsed(parsed, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0 - parse_s
+        check(tuple(data.images.shape) == (n_cams, size, size, 3), f"images {data.images.shape}")
+        frames = (np.clip(scene["images"], 0, 1) * 255).astype(np.uint8)
+        check(np.array_equal(data.images.cpu().numpy(), frames), "the loaded frames differ")
+        check(len(parsed.eval_indices) == round(0.1 * n_cams), "the explicit val split")
+        h_parsed = parse_transforms(DataParserConfig(data_dir=tree, downscale_factor=2))
+        h_data = dataset_from_parsed(h_parsed, dev)
+        check(np.array_equal(h_data.images.cpu().numpy(), half)
+              and np.array_equal(h_data.masks.cpu().numpy() * 255, half_masks)
+              and set(h_parsed.width.tolist()) == {size // 2}
+              and np.allclose(h_parsed.fx * 2, parsed.fx), "the images_2/ pyramid level")
+        del data, h_data
+        rng = np.random.default_rng(seed)
+        big_s = capture_size_load(scene, tmp / "capture_1200", dev)
+        print(f"disk: wrote the capture ({n_cams} frames at {size}^2 and its images_2/ level, "
+              f"PNG) in {write_s:.3f} s; host: parse_transforms {parse_s:.4f} s, "
+              f"dataset_from_parsed of {n_cams} frames onto the card {load_s:.3f} s; "
+              f"dataset_from_parsed of {CAPTURE_FRAMES} frames at 1200x900 (Pillow's adaptive "
+              f"filters) {big_s:.3f} s = {big_s / CAPTURE_FRAMES * 1e3:.1f} ms a frame; the "
+              f"downscale-2 level parses to {size // 2}^2 and loads as written")
+
+        with counted_calls(trainer, "train_loop", hg, counts), \
+                counted_calls(trainer, "evaluate_all", hg, counts):
+            t0 = time.perf_counter()
+            state, timings = run(train_cli, ["--data", tree, "--output-dir", run_dir,
+                                             "--max-iters", DISK_ITERS, "--sparsity-loss", 0.005,
+                                             "--seed", seed])
+            train_wall = time.perf_counter() - t0
+        manifest = json.loads((run_dir / "manifest.json").read_text())
+        log = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+        fresh = parse_transforms(DataParserConfig(data_dir=tree))
+        check(np.array_equal(np.asarray(manifest["dataparser_transform"], np.float32),
+                             fresh.dataparser_transform)
+              and manifest["dataparser_scale"] == fresh.dataparser_scale
+              and manifest["downscale_factor"] is None,
+              "the manifest's transform or scale differs from a fresh parse")
+        train = [r for r in log if "total_loss" in r]
+        final = [r for r in log if "final_eval_psnr" in r]
+        check(state.step == DISK_ITERS and train[-1]["psnr"] > train[0]["psnr"]
+              and all(math.isfinite(r[k]) for r in train for k in LOSS_KEYS),
+              "the disk run did not train")
+        cfg = apply_overrides(fruit_nerf(n_cams), {"sparsity_loss": 0.005})
+        chunks = math.ceil(size * size / cfg.eval_rays_per_chunk)
+        want = predicted_cell_launches(cfg, DISK_ITERS,
+                                       DISK_ITERS // cfg.steps_per_eval * chunks)
+        got = counts["train_loop"][0]
+        rays = DISK_ITERS * cfg.train_rays_per_batch / timings["train_s"]
+        print(f"disk: train --data <capture> --max-iters {DISK_ITERS} --sparsity-loss 0.005 in "
+              f"{train_wall:.3f} s on {name}: train_s {timings['train_s']:.3f} s = {rays:.1f} "
+              f"rays/s ({rays / cfg.train_rays_per_batch:.3f} steps/s), eval_s "
+              f"{timings['eval_s']:.3f}, save_s {timings['save_s']:.3f}; train PSNR "
+              + ", ".join(f"{r['psnr']:.3f} dB at {r['step']}" for r in train[::4])
+              + f"; final eval over {len(parsed.eval_indices)} val cameras PSNR "
+              f"{final[0]['final_eval_psnr']:.3f} dB; manifest scale "
+              f"{manifest['dataparser_scale']:.6f} equals a fresh parse")
+        print(f"disk: launches in train_loop {got}, predicted {want}")
+        check(got == want, "the disk run's K1/K2 launches differ from the prediction")
+        check(counts["evaluate_all"][0]["cell_encode_fwd"] == len(parsed.eval_indices) * chunks,
+              "the final eval's K1 launches")
+
+        lp = lpips_npz(tmp / "lpips_tiny.npz", seed)
+        with counted_calls(trainer, "evaluate_all", hg, counts):
+            ev = run(eval_cli, ["--load-dir", run_dir, "--data", tree, "--lpips-weights", lp])
+        print(f"disk: eval over the val split ({ev['num_images_evaluated']} cameras) on "
+              f"{ev['device']}: PSNR {ev['psnr']:.3f} dB, SSIM {ev['ssim']:.4f}, IoU "
+              f"{ev['iou']:.4f}, LPIPS (tiny random weights) {ev['lpips']:.5f}, "
+              f"{ev['num_rays_per_sec']:.1f} rays/s")
+        check(torch.device(ev["device"]).type == dev.type
+              and ev["num_images_evaluated"] == len(parsed.eval_indices),
+              f"eval ran on {ev['device']} over {ev['num_images_evaluated']} cameras")
+        check(all(math.isfinite(ev[k]) for k in ("psnr", "ssim", "iou"))
+              and 0.0 <= ev["lpips"] < math.inf, f"eval stats: {ev}")
+        check(counts["evaluate_all"][1]["cell_encode_fwd"] == len(parsed.eval_indices) * chunks,
+              "eval's K1 launches")
+
+        cam = int(parsed.eval_indices[0])
+        with counted_calls(trainer, "render_camera", hg, counts):
+            panels = run(render_cli, ["--load-dir", run_dir, "--data", tree, "--output-dir",
+                                      tmp / "render", "--cameras", cam])
+        shapes = [(Image.open(p).mode, Image.open(p).size) for p in panels]
+        print(f"disk: render camera {cam}: {[p.name for p in panels]}, each {shapes[0]}")
+        check(len(panels) == 5 and all(s == ("RGB", (size, size)) for s in shapes),
+              f"panels {shapes}")
+        check(counts["render_camera"][0]["cell_encode_fwd"] == chunks, "render's K1 launches")
+
+        # the probe behind DISK_THRESHOLDS: density and logit at the fruit
+        # centres, on their shells (0.8 r) and at background points; then
+        # the export and count at DISK_THRESHOLDS
+        s_box = manifest["dataparser_scale"] / APPLIED_SCALE / 2.0  # world -> probe frame
+        tr = np.asarray(manifest["dataparser_transform"], np.float64)
+        gt = np.asarray(scene["fruit_centers"], np.float64) @ tr[:, :3].T + tr[:, 3]
+        r_world = float(scene["fruit_radius"])
+        dirs = rng.standard_normal((len(gt), 8, 3))
+        shell = gt[:, None] + 0.8 * r_world * dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+        lo, hi = np.asarray(DISK_BOX[0]), np.asarray(DISK_BOX[1])
+        bg = lo + (hi - lo) * rng.random((20000, 3))
+        far = np.linalg.norm(bg[:, None] - gt[None] * s_box, axis=-1).min(1) > 3 * r_world * s_box
+        _, _, state = load_run(run_dir, dev)
+        for label, pts in (("centres", gt * s_box), ("shells", shell.reshape(-1, 3) * s_box),
+                           ("background", bg[far])):
+            dens, logit = probe_field(state, cfg, torch.tensor(pts, dtype=torch.float32,
+                                                               device=dev))
+            print(f"disk: probe at {len(pts)} {label}: density p10/50/90 {_pcts(dens)}, "
+                  f"semantic logit p10/50/90 {_pcts(logit)}")
+        del state
+
+        # exported points land at dataparser_transform @ world / applied_scale
+        r_out, gt_count = r_world / APPLIED_SCALE, len(gt)
+        gt_out = torch.tensor(gt / APPLIED_SCALE, device=dev)
+        batches = math.ceil(DISK_EXPORT_N**2 / vs.rays_per_batch(
+            vs.ExportConfig(num_points_per_side=DISK_EXPORT_N)))
+        exp_dir = tmp / "export"
+        with counted_calls(vs, "sample_volume", hg, counts):
+            t0 = time.perf_counter()
+            clouds = run(export_cli, [
+                "--load-dir", run_dir, "--output-dir", exp_dir,
+                "--num-points-per-side", DISK_EXPORT_N,
+                "--bounding-box-min", *DISK_BOX[0], "--bounding-box-max", *DISK_BOX[1],
+                "--semantic-logit-threshold", DISK_THRESHOLDS[0],
+                "--density-threshold", DISK_THRESHOLDS[1],
+                "--colormap-prob-threshold", DISK_THRESHOLDS[2]])
+            export_s = time.perf_counter() - t0
+        check(counts["sample_volume"][0]["cell_encode_fwd"] == batches, "export's K1 launches")
+        pts = clouds["semantic_colormap"]["points"]
+        check(len(pts) > 0, "the fruit cloud is empty")
+        d = torch.cdist(torch.tensor(pts, dtype=torch.float64, device=dev), gt_out).min(1).values
+        near = float((d < 2.0 * r_out).double().mean())
+        t0 = time.perf_counter()
+        results = run(count_cli, [
+            "--cloud", exp_dir / "semantic_colormap.ply", "--eps", 0.6 * r_out,
+            "--min-samples", 4, "--remove-outliers-nb-points", 3,
+            "--remove-outliers-radius", 0.45 * r_out, "--down-sample", 0.05 * r_out,
+            "--cluster-merge-distance", 1.2 * r_out, "--template-size", r_out / 0.04,
+            "--gt-count", gt_count, "--output", exp_dir / "count.json"])
+        count_s = time.perf_counter() - t0
+        (row,) = results.values()
+        row.setdefault("count", row.get("error"))
+        print(f"disk: export N={DISK_EXPORT_N} in the crop box {DISK_BOX} at thresholds "
+              f"{DISK_THRESHOLDS}: {export_s:.3f} s; points "
+              + ", ".join(f"{k} {len(v['points'])}" for k, v in clouds.items())
+              + f"; {near:.4f} of the fruit cloud within 2 fruit radii of a GT centre; "
+              f"count {row['count']}/{gt_count} in {count_s:.3f} s (cloud "
+              f"{Path(row['cloud_used']).name})")
+        check(near > 0.5, f"only {near:.2%} of the fruit cloud lies near a GT centre")
+        check(1 <= row["count"] <= 3 * gt_count, f"count {row['count']} of {gt_count}")
+    runs = [c for v in counts.values() for c in v]
+    return {k: sum(c[k] for c in runs) for k in runs[0]}
 
 
 def _other_kernels(lib, hg, corner: bool):
@@ -1411,12 +1741,14 @@ def main(argv=None) -> int:
     parity_counts = orchard_phase(dev, PARITY_ITERS, EXPORT_N, hg, name, "parity", captured)
     hash_step = hash_step_layouts(hg, parity_cfg, list(captured), dev, args.seed)
     smoke_counts = smoke_phase(dev, hg, name, args.seed)
+    disk_counts = disk_phase(dev, hg, name, args.seed)
     for k in kernels:  # K5/K6's launches were counted on their own path, in the kernel phase
         if k["name"].startswith("corner_encode"):
             k["launches"] = corner_counts[k["name"]] + parity_counts[k["name"]] \
                 + smoke_counts[k["name"]]
         elif k["name"].startswith("cell_encode"):
-            k["launches"] = cell_counts[k["name"]] + orchard_counts[k["name"]]
+            k["launches"] = cell_counts[k["name"]] + orchard_counts[k["name"]] \
+                + disk_counts[k["name"]]
     # K1/K2 and K3/K4 at their step's positions; K3/K4 at the parity layouts
     for pair, key, step in ((kernels[0:2], "step", step12), (kernels[2:4], "step", step34),
                             (kernels[2:4], "parity_random", hash_random),

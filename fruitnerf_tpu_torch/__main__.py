@@ -1,7 +1,10 @@
 """The port's CLI: python -m fruitnerf_tpu_torch <command> ...
 
 Commands, each the twin of the JAX package's command of the same name:
-  train         train on the built-in synthetic scene
+  train         train on a capture directory (transforms.json) or the
+                built-in synthetic scene
+  eval          full-eval-set metrics of a trained run
+  render        PNG panels of a trained run's cameras
   export        semantic point clouds of a trained run
   count         count the fruit of an exported cloud
   orchard-e2e   synthetic orchard: train -> export -> count -> GT metrics
@@ -12,12 +15,16 @@ import argparse
 import sys
 
 from .scripts import count as count_cmd
+from .scripts import evaluate as eval_cmd
 from .scripts import export as export_cmd
 from .scripts import orchard_e2e as orchard_cmd
+from .scripts import render as render_cmd
 from .scripts import train as train_cmd
 
 COMMANDS = {
     "train": train_cmd,
+    "eval": eval_cmd,
+    "render": render_cmd,
     "export": export_cmd,
     "count": count_cmd,
     "orchard-e2e": orchard_cmd,

@@ -1,8 +1,7 @@
 """Turn a scene into device-resident training data. Twin of
-``fruitnerf_tpu/data/builder.py`` (``dataset_from_scene``; the on-disk
-``dataset_from_parsed`` is still to port).
-
-Scenes come from ``data/synthetic.py`` (re-exported here).
+``fruitnerf_tpu/data/builder.py``: ``dataset_from_scene`` for a synthetic
+scene (``data/synthetic.py``, re-exported here), ``dataset_from_parsed``
+for a capture on disk (``data/dataparser.py``).
 """
 from __future__ import annotations
 
@@ -11,6 +10,7 @@ import torch
 
 from .synthetic import SyntheticSceneConfig, cached_render_scene, render_scene  # noqa: F401
 
+from .poses_io import load_image, load_mask
 from ..cameras.cameras import Cameras
 from ..engine.trainer import DeviceDataset, build_device_dataset
 
@@ -47,3 +47,35 @@ def dataset_from_scene(scene: dict, device, train_fraction: float = 0.9) -> Devi
     return build_device_dataset(
         scene["images"], scene["masks"], cameras_from_scene(scene, device), train_idx, device
     )
+
+
+def cameras_from_parsed(parsed, device) -> Cameras:
+    """The cameras of a ``dataparser.ParsedScene``: per-frame intrinsics and
+    OpenCV distortion."""
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return Cameras(
+        camera_to_worlds=t(parsed.poses),
+        fx=t(parsed.fx),
+        fy=t(parsed.fy),
+        cx=t(parsed.cx),
+        cy=t(parsed.cy),
+        width=t(parsed.width, torch.int64),
+        height=t(parsed.height, torch.int64),
+        distortion=t(parsed.distortion),
+    )
+
+
+def dataset_from_parsed(parsed, device) -> DeviceDataset:
+    """From a ``dataparser.ParsedScene`` with images and masks on disk (all
+    frames must share one resolution). Each frame becomes uint8 as it
+    loads, as ``build_device_dataset`` would convert the whole float stack
+    (``load_image``'s ``/ 255`` then ``* 255`` returns every uint8 value
+    unchanged), so the host holds a quarter of the float stack."""
+    images = np.stack([(np.clip(load_image(p), 0, 1) * 255).astype(np.uint8)
+                       for p in parsed.image_paths])
+    masks = np.stack([(load_mask(p) > 0.5).astype(np.uint8) for p in parsed.mask_paths])
+    return build_device_dataset(images, masks, cameras_from_parsed(parsed, device),
+                                parsed.train_indices, device)

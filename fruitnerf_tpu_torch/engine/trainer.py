@@ -290,10 +290,12 @@ def _sync(device: torch.device):
 
 
 def evaluate_image(
-    params: dict, data: DeviceDataset, camera_index: int, config: TrainConfig
+    params: dict, data: DeviceDataset, camera_index: int, config: TrainConfig,
+    lpips_weights_path=None,
 ) -> tuple[dict, dict]:
     """Render one eval camera -> ({psnr, ssim, iou, iou_reference_quirk,
-    num_rays_per_sec, fps} as floats, the rendered panels)."""
+    num_rays_per_sec, fps} as floats, the rendered panels). LPIPS is
+    reported too when backbone weights are given (``utils/lpips.py``)."""
     dev = data.images.device
     _sync(dev)
     t0 = time.perf_counter()
@@ -310,12 +312,18 @@ def evaluate_image(
     ]).tolist()  # one device-to-host copy
     stats = dict(zip(("psnr", "ssim", "iou", "iou_reference_quirk"), m))
     stats.update(num_rays_per_sec=h * w / dt, fps=1.0 / dt)
+    if lpips_weights_path is not None:
+        from ..utils.lpips import lpips
+
+        stats["lpips"] = lpips(out["rgb"], gt, weights_path=lpips_weights_path)
     return stats, out
 
 
-def evaluate_all(params: dict, data: DeviceDataset, indices, config: TrainConfig) -> dict:
+def evaluate_all(params: dict, data: DeviceDataset, indices, config: TrainConfig,
+                 lpips_weights_path=None) -> dict:
     """Eval metrics and throughput averaged over the cameras ``indices``."""
-    all_stats = [evaluate_image(params, data, int(ci), config)[0] for ci in indices]
+    all_stats = [evaluate_image(params, data, int(ci), config, lpips_weights_path)[0]
+                 for ci in indices]
     return {k: float(np.mean([s[k] for s in all_stats])) for k in all_stats[0]}
 
 

@@ -13,7 +13,6 @@ and ``density.ply`` into ``--output-dir``. It runs on the card unless
 from __future__ import annotations
 
 import argparse
-from pathlib import Path
 
 
 def add_args(p: argparse.ArgumentParser):
@@ -56,36 +55,21 @@ def add_args(p: argparse.ArgumentParser):
 
 
 def main(args):
-    from ..configs import apply_overrides, run_preset
-    from ..engine.checkpoints import grid_from_manifest, read_manifest, resume_from_latest
-    from ..engine.trainer import init_train_state
+    from ..engine.runs import load_run
     from ..export.volume_sampler import ExportConfig, sample_volume
     from ..utils import resolve_device
 
     if args.mode == "pointcloud":
         raise NotImplementedError(
             "export --mode pointcloud (the depth-backprojected RGB cloud) is not ported "
-            "(ROADMAP Queue 1 item 14)"
+            "(ROADMAP Queue 1 item 5)"
         )
     if args.mesh:
         raise NotImplementedError(
-            "export --mesh (multi-device export) is not ported (ROADMAP Queue 1 item 13)"
+            "export --mesh (multi-device export) is not ported (ROADMAP Queue 1 item 7)"
         )
     dev = resolve_device(args.device)
-    run_dir = Path(args.load_dir)
-    manifest = read_manifest(run_dir)
-    preset, num_images = manifest["preset"], manifest["num_images"]
-    variant = manifest.get("variant", "tpu")
-    config = run_preset(preset, num_images, variant)
-    config = apply_overrides(config, manifest.get("config_overrides", {}))
-    grid_from_manifest(manifest, expect=config.model.field.encoding_config)
-
-    state, resumed = resume_from_latest(
-        run_dir / "checkpoints", init_train_state(config, num_images, dev)
-    )
-    if not resumed:
-        raise FileNotFoundError(f"no checkpoint under {run_dir}/checkpoints")
-    print(f"loaded step {state.step} ({preset}, variant={variant}) on {dev}")
+    manifest, config, state = load_run(args.load_dir, dev)
 
     export_config = ExportConfig(
         bounding_box_min=tuple(args.bounding_box_min),

@@ -1,12 +1,18 @@
-"""Training CLI on the built-in synthetic scene. Twin of
-``fruitnerf_tpu/scripts/train.py`` for ``--data synthetic``.
+"""Training CLI — the ``ns-train fruit_nerf`` equivalent. Twin of
+``fruitnerf_tpu/scripts/train.py``.
 
-    python -m fruitnerf_tpu_torch train --data synthetic --output-dir runs/my_run
+    python -m fruitnerf_tpu_torch train --preset fruit_nerf --data <dir> \\
+        --output-dir runs/my_run
 
-The run directory receives ``manifest.json`` (what ``export`` reads),
-``checkpoints/`` and ``metrics.jsonl``. It runs on the card unless
-``--device cpu`` asks for the CPU. Training on a capture directory
-(``transforms.json``) is not ported yet.
+``--data`` is a capture directory (``transforms.json``, images, fruit
+masks; ``data/dataparser.py``) or ``synthetic``, the built-in procedural
+scene. The run directory receives ``manifest.json`` (what ``export``,
+``eval`` and ``render`` read), ``checkpoints/`` and ``metrics.jsonl``. It
+runs on the card unless ``--device cpu`` asks for the CPU.
+
+Unlike the twin, the manifest of a capture run records the
+``--downscale-factor`` it was trained at (null: the dataparser's automatic
+rule), and ``eval`` and ``render`` parse the capture again at it.
 """
 from __future__ import annotations
 
@@ -52,30 +58,44 @@ def main(args):
     import torch
 
     from ..configs import apply_overrides, run_preset
-    from ..data.builder import dataset_from_scene
-    from ..data.synthetic import SyntheticSceneConfig, render_scene
     from ..engine.checkpoints import resume_from_latest, write_manifest
     from ..engine.trainer import evaluate_all, init_train_state, train_loop
     from ..utils import resolve_device
     from ..utils.writer import MetricWriter
 
-    if args.data != "synthetic":
-        raise NotImplementedError(
-            "train --data <capture dir>: the dataset path (data/builder.py:"
-            "dataset_from_parsed) is ROADMAP Queue 1 item 11; use --data synthetic"
-        )
-    if args.lpips_weights is not None:
-        raise NotImplementedError("LPIPS (utils/lpips.py) is ROADMAP Queue 1 item 14")
     dev = resolve_device(args.device)
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    scene = render_scene(SyntheticSceneConfig(num_cameras=24, image_size=128), device=dev)
-    num_images = scene["images"].shape[0]
+    # the preset's split fraction must reach the dataparser; num_images does
+    # not affect it, so probe with 1
+    split = (run_preset(args.preset, 1, args.variant).train_split_fraction
+             if args.train_split_fraction is None else args.train_split_fraction)
+    if args.data == "synthetic":
+        from ..data.builder import dataset_from_scene
+        from ..data.synthetic import SyntheticSceneConfig, render_scene
+
+        scene = render_scene(SyntheticSceneConfig(num_cameras=24, image_size=128), device=dev)
+        data = dataset_from_scene(scene, dev, train_fraction=split)
+        eval_indices = np.array([0])
+        frame = dict(dataparser_transform=np.eye(4)[:3], dataparser_scale=1.0,
+                     scene_aabb=np.array([[-1.0] * 3, [1.0] * 3]))
+        capture = {}
+    else:
+        from ..data.builder import dataset_from_parsed
+        from ..data.dataparser import DataParserConfig, parse_transforms
+
+        parsed = parse_transforms(DataParserConfig(
+            data_dir=Path(args.data), downscale_factor=args.downscale_factor,
+            train_split_fraction=split))
+        data = dataset_from_parsed(parsed, dev)
+        eval_indices = parsed.eval_indices
+        frame = dict(dataparser_transform=parsed.dataparser_transform,
+                     dataparser_scale=parsed.dataparser_scale, scene_aabb=parsed.scene_aabb,
+                     semantics_classes=parsed.semantics_classes)
+        capture = {"downscale_factor": args.downscale_factor}
+    num_images = data.cameras.num_cameras
     config = run_preset(args.preset, num_images, args.variant)
-    split = (config.train_split_fraction if args.train_split_fraction is None
-             else args.train_split_fraction)
-    data = dataset_from_scene(scene, dev, train_fraction=split)
     overrides = {
         k: v for k, v in {
             "train_rays_per_batch": args.train_rays_per_batch,
@@ -88,11 +108,10 @@ def main(args):
         config, seed=args.seed, max_iters=args.max_iters or config.max_iters
     )
     write_manifest(
-        out_dir, preset=config.preset, dataparser_transform=np.eye(4)[:3],
-        dataparser_scale=1.0, scene_aabb=np.array([[-1.0] * 3, [1.0] * 3]),
-        num_images=num_images, grid=config.model.field.encoding_config,
+        out_dir, preset=config.preset, num_images=num_images,
+        grid=config.model.field.encoding_config, **frame,
         extra={"variant": args.variant, "max_iters": config.max_iters,
-               "train_split_fraction": split, "config_overrides": overrides},
+               "train_split_fraction": split, "config_overrides": overrides, **capture},
     )
 
     gen = torch.Generator(device=dev).manual_seed(config.seed)
@@ -104,12 +123,16 @@ def main(args):
         )
         print(f"resume: {f'from step {restored.step}' if resumed else 'no checkpoint found'}")
         state = restored if resumed else None
-    eval_indices = np.array([0])
     writer = MetricWriter(out_dir / "metrics.jsonl")
+    timings: dict = {}
     state = train_loop(config, data, eval_indices=eval_indices, state=state, generator=gen,
-                       writer=writer, checkpoint_dir=ckpt_dir)
-    stats = evaluate_all(state.params, data, eval_indices, config)
-    writer.write(state.step, {f"final_eval_{k}": v for k, v in stats.items()})
+                       writer=writer, checkpoint_dir=ckpt_dir, timings=timings)
+    if len(eval_indices):
+        # full-eval-set averages, the get_average_eval_image_metrics analog
+        # (fruit_pipeline.py:176-227)
+        stats = evaluate_all(state.params, data, eval_indices, config,
+                             lpips_weights_path=args.lpips_weights)
+        writer.write(state.step, {f"final_eval_{k}": v for k, v in stats.items()})
     writer.close()
     print(f"done: step {state.step}, artifacts in {out_dir}")
-    return state
+    return state, timings

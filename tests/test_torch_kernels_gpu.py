@@ -4,7 +4,10 @@ tiled kernels also at ray-ordered points, with every point in one cell
 (and the corner kernels at hash collisions inside a warp and at F = 1 to
 8), at 1 to 32 levels and at a P that is no multiple of their tile; the
 corner kernels at the parity variant's hash layouts through ``hash_encode``;
-and two training runs from one seed, which must be bitwise equal. Every test
+two training runs from one seed, which must be bitwise equal; and the disk
+capture workflow on the card: ``train --data <capture>`` launches K1/K2 as
+predicted, ``eval`` and ``render`` run on the card by default, and LPIPS
+there equals LPIPS on the CPU. Every test
 here is marked ``gpu`` and skips without one.
 This file imports no JAX, so it runs on the GPU machine, which has none:
 
@@ -471,3 +474,80 @@ def test_training_repeats_under_one_seed(dev, preset):
     r = two_runs(cfg, data, seed=0)
     assert hg.LAUNCHES[f"{family}_encode_bwd"] > before
     assert r["bitwise"], r
+
+
+@pytest.fixture
+def capture(dev, tmp_path):
+    """A 10-camera 48^2 capture tree, written by the port's own writer."""
+    from fruitnerf_tpu_torch.data.fixture import write_scene_capture
+    from fruitnerf_tpu_torch.data.synthetic import SyntheticSceneConfig, render_scene
+
+    scene = render_scene(SyntheticSceneConfig(num_fruits=4, image_size=48, num_cameras=10),
+                         device=dev)
+    write_scene_capture(scene, tmp_path / "capture", eval_fraction=0.2)
+    return tmp_path / "capture"
+
+
+def test_disk_train_launches_the_cell_kernels_as_predicted(dev, capture, tmp_path):
+    """``train --data <capture>`` on the grid preset at full width, a few
+    steps on the card: K1/K2 twice a step (fine samples, sparsity points),
+    K1 once a chunk of the final eval over the two val cameras."""
+    import math
+
+    from fruitnerf_tpu_torch.__main__ import main as port_cli
+    from fruitnerf_tpu_torch.configs import fruit_nerf
+
+    hg.reset_launch_counts()
+    port_cli(["train", "--data", str(capture), "--output-dir", str(tmp_path / "run"),
+              "--max-iters", "3", "--sparsity-loss", "0.005"])
+    torch.cuda.synchronize()
+    chunks = math.ceil(48 * 48 / fruit_nerf(10).eval_rays_per_chunk)
+    assert hg.LAUNCHES["cell_encode_fwd"] == 2 * 3 + 2 * chunks
+    assert hg.LAUNCHES["cell_encode_bwd"] == 2 * 3
+    assert hg.LAUNCHES["corner_encode_fwd"] == hg.LAUNCHES["corner_encode_bwd"] == 0
+
+
+def test_eval_and_render_run_on_the_card_by_default(dev, capture, tmp_path, capsys):
+    import json
+
+    from fruitnerf_tpu_torch.__main__ import main as port_cli
+    from PIL import Image
+
+    run = tmp_path / "run"
+    port_cli(["train", "--preset", "fruit_nerf_smoke", "--data", str(capture),
+              "--output-dir", str(run), "--max-iters", "2"])
+    port_cli(["eval", "--load-dir", str(run), "--data", str(capture),
+              "--output", str(tmp_path / "eval.json")])
+    stats = json.loads((tmp_path / "eval.json").read_text())
+    assert stats["device"] == "cuda" and stats["num_images_evaluated"] == 2
+    capsys.readouterr()
+    port_cli(["render", "--load-dir", str(run), "--data", str(capture),
+              "--output-dir", str(tmp_path / "r"), "--cameras", "1"])
+    assert "on cuda" in capsys.readouterr().out
+    assert Image.open(tmp_path / "r" / "cam001_rgb.png").size == (48, 48)
+
+
+def test_lpips_on_the_card_equals_the_cpu(dev, tmp_path):
+    """At the default flags, as ``eval --lpips-weights`` runs it: ``lpips_fn``
+    keeps cuDNN off TF32 and leaves the flag as it found it."""
+    from fruitnerf_tpu_torch.utils.lpips import load_lpips_weights, lpips_fn
+
+    rng = np.random.default_rng(0)
+
+    def r(*shape, s=0.3):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    path = tmp_path / "lpips_tiny.npz"
+    np.savez(path, shift=np.array([-0.030, -0.088, -0.188], np.float32),
+             scale=np.array([0.458, 0.448, 0.450], np.float32),
+             stage0_conv0_w=r(4, 3, 3, 3), stage0_conv0_b=r(4, s=0.1),
+             stage0_conv1_w=r(4, 4, 3, 3), stage0_conv1_b=r(4, s=0.1),
+             stage1_conv0_w=r(6, 4, 3, 3), stage1_conv0_b=r(6, s=0.1),
+             lin0_w=np.abs(r(1, 4, 1, 1, s=1.0)), lin1_w=np.abs(r(1, 6, 1, 1, s=1.0)))
+    w = load_lpips_weights(path)
+    a = rng.random((64, 48, 3), dtype=np.float32)
+    b = np.clip(a + 0.1 * rng.standard_normal(a.shape), 0, 1).astype(np.float32)
+    flag = torch.backends.cudnn.allow_tf32
+    on_card = lpips_fn(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), w)
+    assert on_card.device.type == "cuda" and torch.backends.cudnn.allow_tf32 == flag
+    assert abs(float(on_card) - float(lpips_fn(a, b, w))) <= 1e-5

@@ -166,9 +166,11 @@ def test_train_cli_writes_a_run_that_export_reads(tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["train", "--data", "captures/tree01", "--output-dir", "unused"], "item 11"),
-    (["export", "--load-dir", "unused", "--output-dir", "unused", "--mode", "pointcloud"], "item 14"),
-    (["export", "--load-dir", "unused", "--output-dir", "unused", "--mesh"], "item 13"),
+    (["eval", "--load-dir", "unused", "--data", "unused", "--mesh"], "item 7"),
+    (["export", "--load-dir", "unused", "--output-dir", "unused", "--mode", "pointcloud"], "item 5"),
+    (["export", "--load-dir", "unused", "--output-dir", "unused", "--mesh"], "item 7"),
+    (["render", "--load-dir", "unused", "--data", "unused", "--output-dir", "unused", "--mesh"],
+     "item 7"),
 ])
 def test_unported_options_raise(argv, item):
     """What the port leaves out raises before it touches a file, naming the
