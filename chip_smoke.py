@@ -6,9 +6,10 @@ grid (through ``train_loop``, with evals and checkpoints) for a few hundred
 steps each on a synthetic scene, and resume and render; then run the
 fruit-counting main path, ``orchard-e2e``, on the bench orchard, with the
 grid variant and with the parity variant (the reference's hash-grid
-network), train the smoke preset through the ``train`` entry point, and
-run the disk capture workflow (train --data <dir>, eval, render, export,
-count) on the bench orchard written as a capture.
+network), train the smoke preset through the ``train`` entry point, run
+the disk capture workflow (train --data <dir>, eval, render, export,
+count) on the bench orchard written as a capture, and take a raw capture
+through process-data into the big, huge and tpu training configurations.
 
     python3 chip_smoke.py [--steps 400] [--seed 0]
     python3 chip_smoke.py --ab-cell-source OTHER/cell_encode.cu [--steps 200]
@@ -91,11 +92,36 @@ Phases, each printing its lines:
            of the field at the fruits and the background, export in a crop
            box at DISK_THRESHOLDS (more than half the fruit cloud within two
            fruit radii of a GT centre) and count (in [1, 3 x GT])
+  presets  the bench orchard at PRESET_CAMERAS cameras written as a raw
+           capture and run through process-data --num-downscales 1 (its
+           transforms.json must equal a fresh merge, images_2/ and
+           semantics_2/ half size); on that capture, through the train,
+           eval, export and count entry points:
+           big   train --preset fruit_nerf_big (grid variant, full width,
+                 RAdam, 200 of the train images) for BIG_ITERS steps with
+                 sparsity 0.005: 200 train images, the fields group on
+                 RAdam, finite losses, train PSNR rising, K1/K2 launches
+                 equal predicted_cell_launches; eval; the probe; export in
+                 DISK_BOX and count, checked as the disk phase's; rays/s,
+                 peak memory, process-data, train, export and count seconds
+           huge  train --preset fruit_nerf_huge --variant parity (full
+                 width) for HUGE_ITERS steps: finite losses, train PSNR
+                 rising, K3/K4 launches equal predicted_hash_launches; eval;
+                 export; rays/s and peak memory
+           tpu   train --preset fruit_nerf --variant tpu (the frequency
+                 field) for TPU_ITERS steps: finite losses, train PSNR
+                 rising, no grid-kernel launch, a finite final eval
+           then K1/K2 held and timed at the big run's last step's positions
+           (16 levels of up to 16384 rows) and K3/K4 at the huge run's (the
+           main field's fine samples at 16 x 2^21, each proposal field's
+           8,388,608 samples at 7 x 2^18)
 Then one JSON line of the six kernels (K1/K2's launches summed over the cell
-slice, the orchard phase's and the disk phase's counted calls, K3/K4's over the corner slice,
-the parity orchard and the smoke run; the K1-K4 entries also carry their
-step-layout numbers, K1's its export-batch ones, K3/K4's the parity
-layouts' at random points and at the parity step's), the card line,
+slice, the orchard phase's, the disk phase's and the big run's counted
+calls, K3/K4's over the corner slice, the parity orchard, the smoke run and
+the huge run; the K1-K4 entries also carry their step-layout numbers, K1's
+its export-batch ones, K3/K4's the parity layouts' at random points and at
+the parity step's and the huge step's (huge_step), K1/K2's the big step's
+(big_step)), the card line,
 and as the last line {"ok": true, "device": {...}}. It fails if jax or any
 module of the JAX package (fruitnerf_tpu) was imported. Any failure raises
 and exits non-zero; with no CUDA device it exits non-zero before printing
@@ -139,6 +165,7 @@ P_SLICE = 4096 * 48 + 4096  # fine samples plus sparsity points of one step
 ORCHARD_ITERS = 2000  # the orchard phase's steps: a few minutes on the card
 EXPORT_N = 256  # its export's probe grid side: 2^24 probes in 4 batches
 PARITY_ITERS = 1000  # the parity variant's orchard steps
+LARGE_P = 2_000_000  # above this many points a kernel pair's medians are of 10 runs, not 30
 
 
 class SmokeFailure(RuntimeError):
@@ -391,12 +418,15 @@ def hold_pair(label, fwd, bwd, plain, table, pos, grad, library=None, cost=None)
     check(fwd_err <= FWD_ATOL, f"{label} forward error {fwd_err} > {FWD_ATOL}")
     check(dt_rel <= BWD_RTOL, f"{label} dTable relative error {dt_rel} > {BWD_RTOL}")
     check(dp_rel <= BWD_RTOL, f"{label} dPos relative error {dp_rel} > {BWD_RTOL}")
+    # millions of points take the plain versions a large part of a second a
+    # call: there the medians are of fewer runs
+    n = 30 if pos.shape[0] <= LARGE_P else 10
     times = {
-        "fwd_ms": median_ms(lambda: fwd(table, pos)),
-        "fwd_plain_ms": median_ms(lambda: plain(table, pos)),
-        "bwd_ms": median_ms(lambda: bwd(table, pos, grad)),
+        "fwd_ms": median_ms(lambda: fwd(table, pos), n),
+        "fwd_plain_ms": median_ms(lambda: plain(table, pos), n),
+        "bwd_ms": median_ms(lambda: bwd(table, pos, grad), n),
         "bwd_plain_ms": median_ms(
-            lambda: torch.autograd.grad(plain_out, (t_, p_), grad, retain_graph=True)),
+            lambda: torch.autograd.grad(plain_out, (t_, p_), grad, retain_graph=True), n),
         "fwd_library_ms": None, "bwd_library_ms": None,
     }
     if library is not None:
@@ -407,8 +437,8 @@ def hold_pair(label, fwd, bwd, plain, table, pos, grad, library=None, cost=None)
               f"dTable {lb_rel:.3e} of its max")
         check(lf_err <= FWD_ATOL and lb_rel <= BWD_RTOL,
               f"{label}: the embedding_bag yardstick computes another function")
-        times["fwd_library_ms"] = median_ms(lib_fwd)
-        times["bwd_library_ms"] = median_ms(lib_bwd)
+        times["fwd_library_ms"] = median_ms(lib_fwd, n)
+        times["bwd_library_ms"] = median_ms(lib_bwd, n)
     bounds = {}
     if cost is not None:
         for d in ("fwd", "bwd"):
@@ -1107,14 +1137,19 @@ def hash_kernel_phase(hg, cfg, dev, seed: int) -> dict:
 
 
 def hash_step_layouts(hg, cfg, captured: list, dev, seed: int) -> dict:
-    """K3/K4 at the positions of a parity step's four encodings (captured in
+    """K3/K4 at the positions of a hash-grid step's encodings (captured in
     the order the step makes them: proposal 0, proposal 1, the main field's
-    fine samples, its sparsity points), each at its own layout."""
-    encs = dict((name, enc) for name, enc, _ in hash_layouts(cfg))
-    names = ("proposal0", "proposal1", "main", "sparsity")
-    check([tuple(c.shape) for c in captured] == [(p, 3) for _, _, p in hash_layouts(cfg)[1:]]
-          + [(hash_layouts(cfg)[0][2], 3), (cfg.model.sparsity_num_points, 3)],
-          f"the last parity step encoded {[tuple(c.shape) for c in captured]} points")
+    fine samples, and its sparsity points where the config has the prior),
+    each at its own layout."""
+    layouts = hash_layouts(cfg)
+    encs = {name: enc for name, enc, _ in layouts}
+    names = ["proposal0", "proposal1", "main"]
+    want = [(p, 3) for _, _, p in layouts[1:]] + [(layouts[0][2], 3)]
+    if cfg.model.density_sparsity_mult > 0:
+        names.append("sparsity")
+        want.append((cfg.model.sparsity_num_points, 3))
+    check([tuple(c.shape) for c in captured] == want,
+          f"the last hash-grid step encoded {[tuple(c.shape) for c in captured]} points")
     g = torch.Generator(device=dev).manual_seed(seed + 4)
     out = {}
     for name, pos in zip(names, captured):
@@ -1332,6 +1367,106 @@ def _pcts(x: np.ndarray) -> str:
     return "/".join(f"{v:.3g}" for v in np.percentile(x, (10, 50, 90)))
 
 
+def gt_in_capture(manifest: dict, scene: dict) -> tuple[np.ndarray, float]:
+    """GT fruit centres and radius in a capture run's training frame."""
+    tr = np.asarray(manifest["dataparser_transform"], np.float64)
+    gt = np.asarray(scene["fruit_centers"], np.float64) @ tr[:, :3].T + tr[:, 3]
+    return gt, float(scene["fruit_radius"])
+
+
+def probe_capture(tag: str, run_dir: Path, manifest: dict, scene: dict, cfg, dev, rng):
+    """Density and semantic logit of a capture run's field at the fruit
+    centres, on their shells (0.8 r) and at background points of DISK_BOX:
+    what DISK_THRESHOLDS are picked from."""
+    from fruitnerf_tpu_torch.engine.runs import load_run
+
+    s_box = manifest["dataparser_scale"] / APPLIED_SCALE / 2.0  # world -> probe frame
+    gt, r_world = gt_in_capture(manifest, scene)
+    dirs = rng.standard_normal((len(gt), 8, 3))
+    shell = gt[:, None] + 0.8 * r_world * dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    lo, hi = np.asarray(DISK_BOX[0]), np.asarray(DISK_BOX[1])
+    bg = lo + (hi - lo) * rng.random((20000, 3))
+    far = np.linalg.norm(bg[:, None] - gt[None] * s_box, axis=-1).min(1) > 3 * r_world * s_box
+    _, _, state = load_run(run_dir, dev)
+    for label, pts in (("centres", gt * s_box), ("shells", shell.reshape(-1, 3) * s_box),
+                       ("background", bg[far])):
+        dens, logit = probe_field(state, cfg, torch.tensor(pts, dtype=torch.float32, device=dev))
+        print(f"{tag}: probe at {len(pts)} {label}: density p10/50/90 {_pcts(dens)}, "
+              f"semantic logit p10/50/90 {_pcts(logit)}")
+
+
+def export_and_count(tag: str, run_dir: Path, manifest: dict, scene: dict, exp_dir: Path, dev,
+                     hg, counts: dict, fwd: str, count: bool = True) -> dict:
+    """``export`` of a capture run in DISK_BOX at DISK_THRESHOLDS (its
+    launches: one ``fwd`` a batch), then ``count`` of the fruit cloud: more
+    than half of it within two fruit radii of a GT centre, a count in
+    [1, 3 x GT]. ``count=False`` exports alone, with no check on the cloud."""
+    from fruitnerf_tpu_torch.export import volume_sampler as vs
+    from fruitnerf_tpu_torch.scripts import count as count_cli
+    from fruitnerf_tpu_torch.scripts import export as export_cli
+
+    batches = math.ceil(DISK_EXPORT_N**2 / vs.rays_per_batch(
+        vs.ExportConfig(num_points_per_side=DISK_EXPORT_N)))
+    with counted_calls(vs, "sample_volume", hg, counts):
+        t0 = time.perf_counter()
+        clouds = run_cli(export_cli, [
+            "--load-dir", run_dir, "--output-dir", exp_dir,
+            "--num-points-per-side", DISK_EXPORT_N,
+            "--bounding-box-min", *DISK_BOX[0], "--bounding-box-max", *DISK_BOX[1],
+            "--semantic-logit-threshold", DISK_THRESHOLDS[0],
+            "--density-threshold", DISK_THRESHOLDS[1],
+            "--colormap-prob-threshold", DISK_THRESHOLDS[2]])
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t0
+    got = counts["sample_volume"][-1]
+    check(got[fwd] == batches and sum(got.values()) == batches,
+          f"{tag}: export launched {got} for {batches} batches")
+    summary = (f"{tag}: export N={DISK_EXPORT_N} in the crop box {DISK_BOX} at thresholds "
+               f"{DISK_THRESHOLDS}: {export_s:.3f} s ({batches} batches, {fwd} {got[fwd]}); "
+               "points " + ", ".join(f"{k} {len(v['points'])}" for k, v in clouds.items()))
+    out = {"export_s": export_s, "points": {k: len(v["points"]) for k, v in clouds.items()}}
+    if not count:
+        print(summary)
+        return out
+    # exported points land at dataparser_transform @ world / applied_scale
+    gt, r_world = gt_in_capture(manifest, scene)
+    r_out, gt_count = r_world / APPLIED_SCALE, len(gt)
+    gt_out = torch.tensor(gt / APPLIED_SCALE, device=dev)
+    pts = clouds["semantic_colormap"]["points"]
+    check(len(pts) > 0, f"{tag}: the fruit cloud is empty")
+    d = torch.cdist(torch.tensor(pts, dtype=torch.float64, device=dev), gt_out).min(1).values
+    near = float((d < 2.0 * r_out).double().mean())
+    t0 = time.perf_counter()
+    results = run_cli(count_cli, [
+        "--cloud", exp_dir / "semantic_colormap.ply", "--eps", 0.6 * r_out,
+        "--min-samples", 4, "--remove-outliers-nb-points", 3,
+        "--remove-outliers-radius", 0.45 * r_out, "--down-sample", 0.05 * r_out,
+        "--cluster-merge-distance", 1.2 * r_out, "--template-size", r_out / 0.04,
+        "--gt-count", gt_count, "--output", exp_dir / "count.json"])
+    count_s = time.perf_counter() - t0
+    (row,) = results.values()
+    row.setdefault("count", row.get("error"))
+    print(f"{summary}; {near:.4f} of the fruit cloud within 2 fruit radii of a GT centre; "
+          f"count {row['count']}/{gt_count} in {count_s:.3f} s (cloud "
+          f"{Path(row['cloud_used']).name})")
+    check(near > 0.5, f"{tag}: only {near:.2%} of the fruit cloud lies near a GT centre")
+    check(1 <= row["count"] <= 3 * gt_count, f"{tag}: count {row['count']} of {gt_count}")
+    return {**out, "near": near, "count": row["count"], "count_s": count_s}
+
+
+def run_cli(module, argv):
+    """An entry point's ``main`` on its own argument parser."""
+    parser = argparse.ArgumentParser()
+    module.add_args(parser)
+    return module.main(parser.parse_args([str(a) for a in argv]))
+
+
+def summed(counts: dict) -> dict:
+    """Launches summed over every counted call in ``counts``."""
+    runs = [c for v in counts.values() for c in v]
+    return {k: sum(c[k] for c in runs) for k in runs[0]}
+
+
 def disk_phase(dev, hg, name: str, seed: int) -> dict:
     """The disk capture workflow through its entry points, on the bench
     orchard written as a capture tree (``transforms.json``, PNG images and
@@ -1345,22 +1480,13 @@ def disk_phase(dev, hg, name: str, seed: int) -> dict:
     from fruitnerf_tpu_torch.data.dataparser import DataParserConfig, parse_transforms
     from fruitnerf_tpu_torch.data.fixture import write_scene_capture
     from fruitnerf_tpu_torch.engine import trainer
-    from fruitnerf_tpu_torch.engine.runs import load_run
-    from fruitnerf_tpu_torch.export import volume_sampler as vs
-    from fruitnerf_tpu_torch.scripts import count as count_cli
     from fruitnerf_tpu_torch.scripts import evaluate as eval_cli
-    from fruitnerf_tpu_torch.scripts import export as export_cli
     from fruitnerf_tpu_torch.scripts import render as render_cli
     from fruitnerf_tpu_torch.scripts import train as train_cli
 
     import PIL
     from PIL import Image
     print(f"disk: Pillow {PIL.__version__} reads and writes the capture's images")
-
-    def run(module, argv):
-        parser = argparse.ArgumentParser()
-        module.add_args(parser)
-        return module.main(parser.parse_args([str(a) for a in argv]))
 
     cfg_scene = synthetic.orchard_config(**ORCHARD)
     check(synthetic.scene_cache_path(cfg_scene).exists(), "the orchard scene is not cached")
@@ -1404,7 +1530,7 @@ def disk_phase(dev, hg, name: str, seed: int) -> dict:
         with counted_calls(trainer, "train_loop", hg, counts), \
                 counted_calls(trainer, "evaluate_all", hg, counts):
             t0 = time.perf_counter()
-            state, timings = run(train_cli, ["--data", tree, "--output-dir", run_dir,
+            state, timings = run_cli(train_cli, ["--data", tree, "--output-dir", run_dir,
                                              "--max-iters", DISK_ITERS, "--sparsity-loss", 0.005,
                                              "--seed", seed])
             train_wall = time.perf_counter() - t0
@@ -1442,7 +1568,7 @@ def disk_phase(dev, hg, name: str, seed: int) -> dict:
 
         lp = lpips_npz(tmp / "lpips_tiny.npz", seed)
         with counted_calls(trainer, "evaluate_all", hg, counts):
-            ev = run(eval_cli, ["--load-dir", run_dir, "--data", tree, "--lpips-weights", lp])
+            ev = run_cli(eval_cli, ["--load-dir", run_dir, "--data", tree, "--lpips-weights", lp])
         print(f"disk: eval over the val split ({ev['num_images_evaluated']} cameras) on "
               f"{ev['device']}: PSNR {ev['psnr']:.3f} dB, SSIM {ev['ssim']:.4f}, IoU "
               f"{ev['iou']:.4f}, LPIPS (tiny random weights) {ev['lpips']:.5f}, "
@@ -1457,76 +1583,244 @@ def disk_phase(dev, hg, name: str, seed: int) -> dict:
 
         cam = int(parsed.eval_indices[0])
         with counted_calls(trainer, "render_camera", hg, counts):
-            panels = run(render_cli, ["--load-dir", run_dir, "--data", tree, "--output-dir",
-                                      tmp / "render", "--cameras", cam])
+            panels = run_cli(render_cli, ["--load-dir", run_dir, "--data", tree,
+                                          "--output-dir", tmp / "render", "--cameras", cam])
         shapes = [(Image.open(p).mode, Image.open(p).size) for p in panels]
         print(f"disk: render camera {cam}: {[p.name for p in panels]}, each {shapes[0]}")
         check(len(panels) == 5 and all(s == ("RGB", (size, size)) for s in shapes),
               f"panels {shapes}")
         check(counts["render_camera"][0]["cell_encode_fwd"] == chunks, "render's K1 launches")
 
-        # the probe behind DISK_THRESHOLDS: density and logit at the fruit
-        # centres, on their shells (0.8 r) and at background points; then
-        # the export and count at DISK_THRESHOLDS
-        s_box = manifest["dataparser_scale"] / APPLIED_SCALE / 2.0  # world -> probe frame
-        tr = np.asarray(manifest["dataparser_transform"], np.float64)
-        gt = np.asarray(scene["fruit_centers"], np.float64) @ tr[:, :3].T + tr[:, 3]
-        r_world = float(scene["fruit_radius"])
-        dirs = rng.standard_normal((len(gt), 8, 3))
-        shell = gt[:, None] + 0.8 * r_world * dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
-        lo, hi = np.asarray(DISK_BOX[0]), np.asarray(DISK_BOX[1])
-        bg = lo + (hi - lo) * rng.random((20000, 3))
-        far = np.linalg.norm(bg[:, None] - gt[None] * s_box, axis=-1).min(1) > 3 * r_world * s_box
-        _, _, state = load_run(run_dir, dev)
-        for label, pts in (("centres", gt * s_box), ("shells", shell.reshape(-1, 3) * s_box),
-                           ("background", bg[far])):
-            dens, logit = probe_field(state, cfg, torch.tensor(pts, dtype=torch.float32,
-                                                               device=dev))
-            print(f"disk: probe at {len(pts)} {label}: density p10/50/90 {_pcts(dens)}, "
-                  f"semantic logit p10/50/90 {_pcts(logit)}")
-        del state
+        # the probe behind DISK_THRESHOLDS, then the export and count there
+        probe_capture("disk", run_dir, manifest, scene, cfg, dev, rng)
+        export_and_count("disk", run_dir, manifest, scene, tmp / "export", dev, hg, counts,
+                         "cell_encode_fwd")
+    return summed(counts)
 
-        # exported points land at dataparser_transform @ world / applied_scale
-        r_out, gt_count = r_world / APPLIED_SCALE, len(gt)
-        gt_out = torch.tensor(gt / APPLIED_SCALE, device=dev)
-        batches = math.ceil(DISK_EXPORT_N**2 / vs.rays_per_batch(
-            vs.ExportConfig(num_points_per_side=DISK_EXPORT_N)))
-        exp_dir = tmp / "export"
-        with counted_calls(vs, "sample_volume", hg, counts):
-            t0 = time.perf_counter()
-            clouds = run(export_cli, [
-                "--load-dir", run_dir, "--output-dir", exp_dir,
-                "--num-points-per-side", DISK_EXPORT_N,
-                "--bounding-box-min", *DISK_BOX[0], "--bounding-box-max", *DISK_BOX[1],
-                "--semantic-logit-threshold", DISK_THRESHOLDS[0],
-                "--density-threshold", DISK_THRESHOLDS[1],
-                "--colormap-prob-threshold", DISK_THRESHOLDS[2]])
-            export_s = time.perf_counter() - t0
-        check(counts["sample_volume"][0]["cell_encode_fwd"] == batches, "export's K1 launches")
-        pts = clouds["semantic_colormap"]["points"]
-        check(len(pts) > 0, "the fruit cloud is empty")
-        d = torch.cdist(torch.tensor(pts, dtype=torch.float64, device=dev), gt_out).min(1).values
-        near = float((d < 2.0 * r_out).double().mean())
-        t0 = time.perf_counter()
-        results = run(count_cli, [
-            "--cloud", exp_dir / "semantic_colormap.ply", "--eps", 0.6 * r_out,
-            "--min-samples", 4, "--remove-outliers-nb-points", 3,
-            "--remove-outliers-radius", 0.45 * r_out, "--down-sample", 0.05 * r_out,
-            "--cluster-merge-distance", 1.2 * r_out, "--template-size", r_out / 0.04,
-            "--gt-count", gt_count, "--output", exp_dir / "count.json"])
-        count_s = time.perf_counter() - t0
-        (row,) = results.values()
-        row.setdefault("count", row.get("error"))
-        print(f"disk: export N={DISK_EXPORT_N} in the crop box {DISK_BOX} at thresholds "
-              f"{DISK_THRESHOLDS}: {export_s:.3f} s; points "
-              + ", ".join(f"{k} {len(v['points'])}" for k, v in clouds.items())
-              + f"; {near:.4f} of the fruit cloud within 2 fruit radii of a GT centre; "
-              f"count {row['count']}/{gt_count} in {count_s:.3f} s (cloud "
-              f"{Path(row['cloud_used']).name})")
-        check(near > 0.5, f"only {near:.2%} of the fruit cloud lies near a GT centre")
-        check(1 <= row["count"] <= 3 * gt_count, f"count {row['count']} of {gt_count}")
-    runs = [c for v in counts.values() for c in v]
-    return {k: sum(c[k] for c in runs) for k in runs[0]}
+
+# ---------------------------------------------------------------------------
+# the big, huge and tpu configurations, from a raw capture through process-data
+# ---------------------------------------------------------------------------
+
+PRESET_CAMERAS = 240  # at the presets' 0.99 split, more than max_train_images (200) train
+BIG_ITERS = 1000
+HUGE_ITERS = 300
+TPU_ITERS = 500
+
+
+def write_processed_capture(dev, root: Path) -> tuple[dict, Path, float]:
+    """The bench orchard at PRESET_CAMERAS cameras written as a raw capture
+    (``write_scene_capture``, no explicit split, applied_scale
+    APPLIED_SCALE), then ``process-data --num-downscales 1``: the processed
+    tree's transforms.json must equal a fresh merge of the raw one, and its
+    ``images_2/`` and ``semantics_2/`` hold every frame at half size. ->
+    (scene, processed tree, process-data seconds)."""
+    from PIL import Image
+
+    from fruitnerf_tpu_torch.data import synthetic
+    from fruitnerf_tpu_torch.data.fixture import write_scene_capture
+    from fruitnerf_tpu_torch.scripts import process_data
+
+    cfg_scene = synthetic.orchard_config(**{**ORCHARD, "num_cameras": PRESET_CAMERAS})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = synthetic.cached_render_scene(cfg_scene, device=dev)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    raw, tree = root / "raw", root / "capture"
+    t0 = time.perf_counter()
+    write_scene_capture(scene, raw, applied_scale=APPLIED_SCALE)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli(process_data, ["--data", raw / "images", "--data-semantic", raw / "masks",
+                           "--transforms", raw / "transforms.json", "--output-dir", tree,
+                           "--num-downscales", 1])
+    process_s = time.perf_counter() - t0
+    meta = json.loads((raw / "transforms.json").read_text())
+    for fr in meta["frames"]:
+        name = Path(fr["file_path"]).name
+        fr["file_path"], fr["semantic_path"] = f"images/{name}", f"semantics/{Path(name).stem}.png"
+    meta["semantics"] = ["apple", "stuff"]
+    check(json.loads((tree / "transforms.json").read_text()) == meta,
+          "process-data's transforms.json differs from a fresh merge")
+    size = cfg_scene.image_size
+    for d in ("images_2", "semantics_2"):
+        files = sorted((tree / d).iterdir())
+        check(len(files) == PRESET_CAMERAS
+              and all(Image.open(f).size == (size // 2, size // 2) for f in files),
+              f"process-data's {d}/")
+    print(f"presets: the orchard at {PRESET_CAMERAS} cameras rendered in {render_s:.3f} s, "
+          f"written as a raw capture in {write_s:.3f} s; process-data --num-downscales 1 "
+          f"in {process_s:.3f} s; its transforms.json equals a fresh merge and images_2/, "
+          f"semantics_2/ hold {PRESET_CAMERAS} frames at {size // 2}^2")
+    return scene, tree, process_s
+
+
+def train_capture(tag: str, tree: Path, run_dir: Path, argv: list, iters: int, hg,
+                  counts: dict, spy=contextlib.nullcontext()) -> tuple:
+    """``train --data <tree>`` with ``argv``, counted: -> (state, timings,
+    manifest, the log's train records, final eval record, peak GiB, wall
+    seconds). Checks the step count, finite losses and a rising train
+    PSNR."""
+    from fruitnerf_tpu_torch.engine import trainer
+    from fruitnerf_tpu_torch.scripts import train as train_cli
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_calls(trainer, "train_loop", hg, counts), \
+            counted_calls(trainer, "evaluate_all", hg, counts), spy:
+        state, timings = run_cli(train_cli, ["--data", tree, "--output-dir", run_dir,
+                                             "--max-iters", iters, *argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    manifest = json.loads((run_dir / "manifest.json").read_text())
+    log = [json.loads(x) for x in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    train = [r for r in log if "total_loss" in r]
+    final = [r for r in log if "final_eval_psnr" in r]
+    keys = [k for k in LOSS_KEYS if k in train[0]]
+    print(f"{tag}: train PSNR " + ", ".join(f"{r['psnr']:.3f} dB at {r['step']}" for r in train)
+          + (f"; final eval PSNR {final[0]['final_eval_psnr']:.3f} dB" if final else ""))
+    check(state.step == iters, f"{tag}: stopped at step {state.step} of {iters}")
+    check(all(math.isfinite(r[k]) for r in train for k in keys), f"{tag}: a loss is not finite")
+    check(train[-1]["psnr"] > train[0]["psnr"], f"{tag}: train PSNR did not rise")
+    return state, timings, manifest, train, (final[0] if final else None), peak, wall
+
+
+def eval_capture(tag: str, tree: Path, run_dir: Path, dev, hg, counts: dict) -> dict:
+    """``eval`` of a capture run, counted, its stats finite."""
+    from fruitnerf_tpu_torch.engine import trainer
+    from fruitnerf_tpu_torch.scripts import evaluate as eval_cli
+
+    torch.cuda.reset_peak_memory_stats()
+    with counted_calls(trainer, "evaluate_all", hg, counts):
+        ev = run_cli(eval_cli, ["--load-dir", run_dir, "--data", tree])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{tag}: eval over the val split ({ev['num_images_evaluated']} cameras) on "
+          f"{ev['device']}: PSNR {ev['psnr']:.3f} dB, SSIM {ev['ssim']:.4f}, IoU "
+          f"{ev['iou']:.4f}, {ev['num_rays_per_sec']:.1f} rays/s; peak memory {peak:.3f} GiB; "
+          f"launches {counts['evaluate_all'][-1]}")
+    check(torch.device(ev["device"]).type == dev.type, f"{tag}: eval ran on {ev['device']}")
+    check(all(math.isfinite(ev[k]) for k in ("psnr", "ssim", "iou")), f"{tag}: eval {ev}")
+    return ev
+
+
+def big_phase(scene, tree: Path, root: Path, process_s: float, dev, hg, name: str,
+              seed: int) -> tuple[dict, list]:
+    """``fruit_nerf_big`` (grid variant) at full width through ``train
+    --data`` for BIG_ITERS steps with the sparsity prior, then ``eval``,
+    ``export`` in DISK_BOX and ``count --gt-count``. -> (its K1/K2
+    launches, the last step's two grid encodings' positions)."""
+    from fruitnerf_tpu_torch.configs import apply_overrides, fruit_nerf_big
+    from fruitnerf_tpu_torch.engine.trainer import group_algorithms
+
+    run_dir, counts = root / "big", {}
+    captured = collections.deque(maxlen=2)  # the last step's fine samples and sparsity points
+    state, timings, manifest, _, final, peak, wall = train_capture(
+        "big", tree, run_dir, ["--preset", "fruit_nerf_big", "--sparsity-loss", 0.005,
+                               "--seed", seed], BIG_ITERS, hg, counts,
+        captured_positions(captured))
+    cfg = apply_overrides(fruit_nerf_big(PRESET_CAMERAS), {"sparsity_loss": 0.005})
+    algos = group_algorithms(state.optimizer)
+    del state
+    rays = BIG_ITERS * cfg.train_rays_per_batch / timings["train_s"]
+    size = ORCHARD["image_size"]
+    chunks = math.ceil(size * size / cfg.eval_rays_per_chunk)
+    want = predicted_cell_launches(cfg, BIG_ITERS, BIG_ITERS // cfg.steps_per_eval * chunks)
+    got = counts["train_loop"][0]
+    print(f"big: train --preset fruit_nerf_big --data <capture> --max-iters {BIG_ITERS} "
+          f"--sparsity-loss 0.005 in {wall:.3f} s on {name}: train_s {timings['train_s']:.3f} s "
+          f"= {rays:.1f} rays/s ({rays / cfg.train_rays_per_batch:.3f} steps/s), eval_s "
+          f"{timings['eval_s']:.3f}, save_s {timings['save_s']:.3f}; peak memory {peak:.3f} "
+          f"GiB; {manifest['num_train_images']} train images of {PRESET_CAMERAS}; optimizer "
+          f"groups {algos}; process-data {process_s:.3f} s")
+    print(f"big: launches in train_loop {got}, predicted {want}")
+    check(manifest["num_train_images"] == cfg.max_train_images == 200,
+          f"big: {manifest['num_train_images']} train images")
+    check(algos["fields"] == "radam", f"big: the fields group steps {algos['fields']}")
+    check(got == want, "big: the K1/K2 launches differ from the prediction")
+    check(final is not None and math.isfinite(final["final_eval_psnr"]), "big: no final eval")
+    eval_capture("big", tree, run_dir, dev, hg, counts)
+    probe_capture("big", run_dir, manifest, scene, cfg, dev, np.random.default_rng(seed))
+    r = export_and_count("big", run_dir, manifest, scene, root / "big_export", dev, hg, counts,
+                         "cell_encode_fwd")
+    print(f"big: seconds: train {wall:.3f}, export {r['export_s']:.3f}, count "
+          f"{r['count_s']:.3f}")
+    return summed(counts), list(captured)
+
+
+def huge_phase(tree: Path, root: Path, dev, hg, name: str, seed: int) -> tuple[dict, list]:
+    """``fruit_nerf_huge --variant parity`` at full width through ``train
+    --data`` for HUGE_ITERS steps, then ``eval`` and ``export``. -> (its
+    K3/K4 launches, the last step's three hash encodings' positions)."""
+    from fruitnerf_tpu_torch.configs import fruit_nerf_huge
+
+    run_dir, counts = root / "huge", {}
+    captured = collections.deque(maxlen=3)  # proposal 0, proposal 1, the fine samples
+    _, timings, manifest, _, _, peak, wall = train_capture(
+        "huge", tree, run_dir, ["--preset", "fruit_nerf_huge", "--variant", "parity",
+                                "--seed", seed], HUGE_ITERS, hg, counts,
+        captured_positions(captured, "grid_encode_flat"))
+    cfg = dataclasses.replace(fruit_nerf_huge(PRESET_CAMERAS, variant="parity"),
+                              max_iters=HUGE_ITERS)
+    rays = HUGE_ITERS * cfg.train_rays_per_batch / timings["train_s"]
+    size = ORCHARD["image_size"]
+    chunks = math.ceil(size * size / cfg.eval_rays_per_chunk)
+    want = predicted_hash_launches(cfg, range(HUGE_ITERS), HUGE_ITERS // cfg.steps_per_eval,
+                                   chunks)
+    got = counts["train_loop"][0]
+    print(f"huge: train --preset fruit_nerf_huge --variant parity --data <capture> --max-iters "
+          f"{HUGE_ITERS} in {wall:.3f} s on {name}: train_s {timings['train_s']:.3f} s = "
+          f"{rays:.1f} rays/s ({rays / cfg.train_rays_per_batch:.3f} steps/s); peak memory "
+          f"{peak:.3f} GiB; manifest hash entry {manifest['hash']['table_shape']}")
+    print(f"huge: launches in train_loop {got}, predicted {want}")
+    check(got == want, "huge: the K3/K4 launches differ from the prediction")
+    eval_capture("huge", tree, run_dir, dev, hg, counts)
+    export_and_count("huge", run_dir, manifest, None, root / "huge_export", dev, hg, counts,
+                     "corner_encode_fwd", count=False)
+    return summed(counts), list(captured)
+
+
+def tpu_phase(tree: Path, root: Path, dev, hg, name: str, seed: int) -> dict:
+    """``fruit_nerf --variant tpu`` (the frequency field: no table, so no
+    grid kernel) through ``train --data`` for TPU_ITERS steps and its final
+    eval."""
+    run_dir, counts = root / "tpu", {}
+    _, timings, manifest, _, final, peak, wall = train_capture(
+        "tpu", tree, run_dir, ["--preset", "fruit_nerf", "--variant", "tpu", "--seed", seed],
+        TPU_ITERS, hg, counts)
+    rays = TPU_ITERS * 4096 / timings["train_s"]
+    launches = summed(counts)
+    print(f"tpu: train --preset fruit_nerf --variant tpu --data <capture> --max-iters "
+          f"{TPU_ITERS} in {wall:.3f} s on {name}: {rays:.1f} rays/s; peak memory {peak:.3f} "
+          f"GiB; manifest table {manifest.get('table', 'recorded')}; grid kernel launches "
+          f"{launches}")
+    check("table" in manifest and manifest["table"] is None, "tpu: the manifest records a table")
+    check(not any(launches.values()), "tpu: a grid kernel was launched")
+    check(final is not None and math.isfinite(final["final_eval_psnr"]), "tpu: no final eval")
+    return launches
+
+
+def presets_phase(dev, hg, name: str, seed: int) -> dict:
+    """The big, huge and tpu phases on one processed capture, and K1/K2 at
+    the big step's positions and K3/K4 at the huge step's, each at its own
+    layout. -> {"big", "huge", "tpu": launches; "big_step", "huge_step":
+    the kernel pairs' numbers there}."""
+    from fruitnerf_tpu_torch.configs import fruit_nerf_big, fruit_nerf_huge
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        scene, tree, process_s = write_processed_capture(dev, root)
+        big, big_pos = big_phase(scene, tree, root, process_s, dev, hg, name, seed)
+        huge, huge_pos = huge_phase(tree, root, dev, hg, name, seed)
+        tpu = tpu_phase(tree, root, dev, hg, name, seed)
+    layout = fruit_nerf_big(1).model.field.grid.cell_layout()
+    big_step = step_layout(lambda t, p, gr, label: cell_pair(hg, layout, label, t, p, gr),
+                           layout, 16, 2 * layout.num_levels, big_pos, dev, seed,
+                           "K1/K2 big (16 levels x 16384 rows, 16..4096)")
+    huge_step = hash_step_layouts(hg, fruit_nerf_huge(1, variant="parity"), huge_pos, dev, seed)
+    return {"big": big, "huge": huge, "tpu": tpu, "big_step": big_step, "huge_step": huge_step}
 
 
 def _other_kernels(lib, hg, corner: bool):
@@ -1742,17 +2036,21 @@ def main(argv=None) -> int:
     hash_step = hash_step_layouts(hg, parity_cfg, list(captured), dev, args.seed)
     smoke_counts = smoke_phase(dev, hg, name, args.seed)
     disk_counts = disk_phase(dev, hg, name, args.seed)
+    presets = presets_phase(dev, hg, name, args.seed)
     for k in kernels:  # K5/K6's launches were counted on their own path, in the kernel phase
         if k["name"].startswith("corner_encode"):
             k["launches"] = corner_counts[k["name"]] + parity_counts[k["name"]] \
-                + smoke_counts[k["name"]]
+                + smoke_counts[k["name"]] + presets["huge"][k["name"]]
         elif k["name"].startswith("cell_encode"):
             k["launches"] = cell_counts[k["name"]] + orchard_counts[k["name"]] \
-                + disk_counts[k["name"]]
-    # K1/K2 and K3/K4 at their step's positions; K3/K4 at the parity layouts
+                + disk_counts[k["name"]] + presets["big"][k["name"]]
+    # K1/K2 and K3/K4 at their step's positions; K3/K4 at the parity and
+    # huge layouts, K1/K2 at the big layout
     for pair, key, step in ((kernels[0:2], "step", step12), (kernels[2:4], "step", step34),
                             (kernels[2:4], "parity_random", hash_random),
-                            (kernels[2:4], "parity_step", hash_step)):
+                            (kernels[2:4], "parity_step", hash_step),
+                            (kernels[0:2], "big_step", presets["big_step"]),
+                            (kernels[2:4], "huge_step", presets["huge_step"])):
         for k, d in zip(pair, ("fwd", "bwd")):
             k[key] = {at: {"points": r["points"], **_fields(r, d)} for at, r in step.items()}
             k["max_abs_err"] = max(k["max_abs_err"], *(r["max_abs_err"] for r in k[key].values()))

@@ -1,6 +1,8 @@
 """The port's CLI: python -m fruitnerf_tpu_torch <command> ...
 
 Commands, each the twin of the JAX package's command of the same name:
+  process-data  ingest images and fruit masks into a capture directory
+                (downscaled levels, transforms.json with semantic paths)
   train         train on a capture directory (transforms.json) or the
                 built-in synthetic scene
   eval          full-eval-set metrics of a trained run
@@ -18,10 +20,12 @@ from .scripts import count as count_cmd
 from .scripts import evaluate as eval_cmd
 from .scripts import export as export_cmd
 from .scripts import orchard_e2e as orchard_cmd
+from .scripts import process_data as process_cmd
 from .scripts import render as render_cmd
 from .scripts import train as train_cmd
 
 COMMANDS = {
+    "process-data": process_cmd,
     "train": train_cmd,
     "eval": eval_cmd,
     "render": render_cmd,

@@ -11,7 +11,8 @@ of ``TrainState.params``), so this module needs no JAX:
    "camera_opt": [N, 6]}
 
 with ``hash_table`` [L, T, row_width] in place of ``grid_table`` on a hash
-field, and ``{"hash_table", "mlp"}`` for each hash DensityField proposal.
+field, no table on a frequency field (the ``tpu`` variant), and
+``{"hash_table", "mlp"}`` for each hash DensityField proposal.
 The port's tree is the same except its tables, each one flat table:
 
 * every ``hash_table``: [L*T, row_width], the row-major reshape of
@@ -148,13 +149,14 @@ def hash_table_to_jax(table: np.ndarray, config: HashEncodingConfig) -> np.ndarr
 
 def _convert_tables(model: dict, config, hash_fn, grid_fn) -> dict:
     """A copy of the model tree (``{"field", "proposal_networks"}``) with
-    every table converted: the field's by ``config.field``'s encoding, each
-    hash proposal's by its ``DensityFieldConfig``."""
+    every table converted: the field's by ``config.field``'s encoding (a
+    frequency field has none), each hash proposal's by its
+    ``DensityFieldConfig``."""
     field = dict(model["field"])
     key = config.field.table_key
     if config.field.encoding == "hash":
         field[key] = hash_fn(field[key], config.field.hash)
-    else:
+    elif config.field.encoding == "grid":
         field[key] = grid_fn(field[key], config.field.grid)
     nets = model["proposal_networks"]
     if len(nets) != len(config.proposal_nets):

@@ -2,8 +2,9 @@
 Twin of ``fruitnerf_tpu/core/samplers.py``.
 
 Where the JAX twin takes a PRNG key, these take the uniform draws
-themselves (``uniforms``, [R, 1]: one jitter per ray, the twin's single
-jitter), so a caller makes every random draw of a step in one place
+themselves (``uniforms``: [R, 1], one jitter per ray, the twin's single
+jitter; or one per bin, [R, n+1] for the spaced sampler and [R, N+1] for a
+PDF resampling), so a caller makes every random draw of a step in one place
 (``engine.trainer.draw_step``) and a test can inject the JAX draws. As in
 the JAX twin, gradients flow through the resampled bins.
 """
@@ -66,7 +67,7 @@ def spaced_samples(
     uniforms: torch.Tensor | None = None,
 ) -> RaySamples:
     """Evenly spaced bins in s-space, stratified-jittered by ``uniforms``
-    ([R, 1]) only in training."""
+    ([R, 1] or [R, num_samples+1]) only in training."""
     r = bundle.num_rays
     edges = torch.linspace(0.0, 1.0, num_samples + 1, device=bundle.origins.device)
     s_bins = edges.expand(r, num_samples + 1)
@@ -87,7 +88,8 @@ def pdf_sample_bins(
     histogram_padding: float = 0.01,
 ) -> torch.Tensor:
     """Resample [R, S+1] bins by inverse CDF of [R, S] weights -> [R, N+1].
-    ``uniforms`` ([R, 1] in [0,1)) jitter the CDF queries in training."""
+    ``uniforms`` ([R, 1] or [R, N+1], in [0,1)) jitter the CDF queries in
+    training."""
     num_bins = num_samples + 1
     w = weights + histogram_padding
     w_sum = torch.sum(w, dim=-1, keepdim=True)
@@ -124,14 +126,15 @@ def proposal_sample(
     train: bool,
     uniforms: Sequence[torch.Tensor] | None,
     anneal: float = 1.0,
+    initial_spacing: str = "piecewise",
 ):
     """Hierarchical proposal sampling with ``w**anneal`` weight annealing.
 
     ``uniforms`` holds one draw per sampler stage (len(density_fns) + 1):
     the initial spaced sampler's, then each PDF resampling's. Returns
     (ray_samples, weights_list, ray_samples_list) for the proposal levels.
-    Bins are spaced piecewise: uniform up to distance 1, then linear in
-    disparity."""
+    Every stage's bins are spaced by ``initial_spacing``: "piecewise"
+    (uniform up to distance 1, then linear in disparity) or "uniform"."""
     n_levels = len(density_fns)
     if len(num_proposal_samples) != n_levels:
         raise ValueError("one proposal sample count per density function")
@@ -139,7 +142,7 @@ def proposal_sample(
     weights_list = []
     ray_samples_list = []
     samples = spaced_samples(
-        bundle, num_proposal_samples[0], spacing="piecewise", train=train,
+        bundle, num_proposal_samples[0], spacing=initial_spacing, train=train,
         uniforms=draws[0],
     )
     for i in range(n_levels):
@@ -153,5 +156,5 @@ def proposal_sample(
             samples.spacing_bins(), annealed, num_next, train=train,
             uniforms=draws[i + 1],
         )
-        samples = ray_samples_from_spacing_bins(bundle, new_bins, "piecewise")
+        samples = ray_samples_from_spacing_bins(bundle, new_bins, initial_spacing)
     return samples, weights_list, ray_samples_list

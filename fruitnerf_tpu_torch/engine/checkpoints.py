@@ -6,12 +6,16 @@ the step, the parameters (as CPU tensors), the optimizer's ``state_dict()``
 and the training loop's generator state, so that a resumed run draws what an
 uninterrupted one would. It is written to a temporary file and renamed into
 place, so a preempted save never leaves a partial latest checkpoint.
+``save_checkpoint_async`` copies all of it to host memory before it
+returns (the train step updates parameters and moments in place) and
+writes it on a worker thread.
 
 The manifest keeps the JAX package's JSON schema and adds the field's
 encoding and its resolved layout: a ``grid`` entry for the grid variant
-(mode, features, resolutions, per-level rows and direct flags, caps) or a
+(mode, features, resolutions, per-level rows and direct flags, caps), a
 ``hash`` entry for a hash field (the ``HashEncodingConfig`` fields, the
-resolutions, rows and direct flags). Restoring rebuilds the table's shape
+resolutions, rows and direct flags), or ``"table": null`` for a field with
+no table (the frequency encoding). Restoring rebuilds the table's shape
 from it and refuses a config whose encoding or layout differs, so a changed
 default cannot leave an older run unrestorable or silently reshaped. The
 JAX package's manifest lacks both.
@@ -21,6 +25,7 @@ alone and converts it through ``bridge.params_from_jax``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -30,30 +35,59 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..bridge import params_from_jax, tree_leaves, tree_map
+from ..bridge import params_from_jax, tree_leaves
 from ..fields.encodings import GridEncodingConfig, HashEncodingConfig
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.pt$")
 
 
-def save_checkpoint(checkpoint_dir, state, generator: torch.Generator | None = None) -> Path:
-    """Write ``state`` (and the loop's ``generator`` state) atomically;
-    returns the checkpoint's path."""
-    checkpoint_dir = Path(checkpoint_dir)
-    checkpoint_dir.mkdir(parents=True, exist_ok=True)
-    step = int(state.step)
-    payload = {
-        "step": step,
-        "params": tree_map(state.params, lambda t: t.detach().cpu()),
-        "optimizer": state.optimizer.state_dict(),
+def _host_copy(tree):
+    """A copy of a state dict's nested dicts and lists, every tensor copied
+    to host memory (a synchronous copy: the source may change next)."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def _snapshot(state, generator: torch.Generator | None) -> dict:
+    return {
+        "step": int(state.step),
+        "params": _host_copy(state.params),
+        "optimizer": _host_copy(state.optimizer.state_dict()),
         "generator": None if generator is None else generator.get_state(),
     }
+
+
+def _write(checkpoint_dir: Path, payload: dict) -> Path:
+    checkpoint_dir.mkdir(parents=True, exist_ok=True)
+    step = payload["step"]
     path = checkpoint_dir / f"ckpt_{step:09d}.pt"
     tmp = checkpoint_dir / f".tmp_ckpt_{step:09d}"
     with open(tmp, "wb") as f:
         torch.save(payload, f)
     os.replace(tmp, path)  # atomic: preemption-safe
     return path
+
+
+def save_checkpoint(checkpoint_dir, state, generator: torch.Generator | None = None) -> Path:
+    """Write ``state`` (and the loop's ``generator`` state) atomically;
+    returns the checkpoint's path."""
+    return _write(Path(checkpoint_dir), _snapshot(state, generator))
+
+
+def save_checkpoint_async(
+    checkpoint_dir, state, generator: torch.Generator | None,
+    executor: concurrent.futures.Executor,
+) -> concurrent.futures.Future:
+    """Copy ``state`` and the generator's state to host memory now, then
+    write them on ``executor`` (one worker keeps the writes in order), as
+    ``save_checkpoint`` does. The future's result is the path; read it to
+    wait for the write and to raise its error."""
+    return executor.submit(_write, Path(checkpoint_dir), _snapshot(state, generator))
 
 
 def latest_checkpoint(checkpoint_dir) -> Path | None:
@@ -207,6 +241,9 @@ def grid_from_manifest(
     encoding config about to restore the run) is of the other kind or has
     another layout."""
     kinds = [k for k in _ENCODINGS if k in manifest]
+    if not kinds and "table" in manifest:
+        theirs = "" if expect is None else f"; this config's encodes with {_entry(expect)!r}"
+        raise ValueError(f"the run's field has no table (the frequency encoding){theirs}")
     if not kinds:
         raise ValueError(
             "the manifest has no grid entry, nor a hash entry (the JAX package's "
@@ -232,6 +269,23 @@ def grid_from_manifest(
     return encoding
 
 
+def table_from_manifest(manifest: dict, field) -> GridEncodingConfig | HashEncodingConfig | None:
+    """The table layout a manifest records, checked against ``field`` (the
+    ``FruitFieldConfig`` about to restore the run) as ``grid_from_manifest``
+    checks it; None for a field with no table, whose manifest must record
+    none."""
+    expect = field.encoding_config
+    if expect is not None:
+        return grid_from_manifest(manifest, expect=expect)
+    recorded = [k for k in _ENCODINGS if k in manifest]
+    if recorded or "table" not in manifest or manifest["table"] is not None:
+        raise ValueError(
+            f"this config's field ({field.encoding!r}) has no table; the manifest records "
+            + (f"a {recorded[0]!r} table" if recorded else "no 'table': null entry")
+        )
+    return None
+
+
 def write_manifest(
     run_dir,
     preset: str,
@@ -239,13 +293,13 @@ def write_manifest(
     dataparser_scale: float,
     scene_aabb: np.ndarray,
     num_images: int,
-    grid: GridEncodingConfig | HashEncodingConfig,
+    grid: GridEncodingConfig | HashEncodingConfig | None,
     semantics_classes=("apple", "stuff"),
     extra: dict | None = None,
 ) -> Path:
     """Write ``manifest.json``; ``grid`` is the field's encoding config
     (``FruitFieldConfig.encoding_config``), recorded under ``grid`` or
-    ``hash``."""
+    ``hash``, or None for a field with no table (``"table": null``)."""
     run_dir = Path(run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
     manifest = {
@@ -256,8 +310,11 @@ def write_manifest(
         "scene_aabb": _to_jsonable(scene_aabb),
         "num_images": int(num_images),
         "semantics_classes": list(semantics_classes),
-        _entry(grid): grid_layout(grid),
     }
+    if grid is None:
+        manifest["table"] = None
+    else:
+        manifest[_entry(grid)] = grid_layout(grid)
     if extra:
         manifest.update(_to_jsonable(extra))
     path = run_dir / "manifest.json"

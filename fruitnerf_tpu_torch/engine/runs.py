@@ -6,7 +6,7 @@ from __future__ import annotations
 from pathlib import Path
 
 from ..configs import apply_overrides, run_preset
-from .checkpoints import grid_from_manifest, read_manifest, resume_from_latest
+from .checkpoints import read_manifest, resume_from_latest, table_from_manifest
 from .trainer import init_train_state
 
 
@@ -21,7 +21,7 @@ def load_run(load_dir, device):
     variant = manifest.get("variant", "tpu")
     config = run_preset(preset, num_images, variant)
     config = apply_overrides(config, manifest.get("config_overrides", {}))
-    grid_from_manifest(manifest, expect=config.model.field.encoding_config)
+    table_from_manifest(manifest, config.model.field)
     state, resumed = resume_from_latest(
         run_dir / "checkpoints", init_train_state(config, num_images, device)
     )

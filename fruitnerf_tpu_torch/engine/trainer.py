@@ -1,6 +1,6 @@
-"""Training engine: device-resident data, the train step, per-group Adam,
-the chunked eval render, eval metrics and the outer ``train_loop``. Twin of
-``fruitnerf_tpu/engine/trainer.py``.
+"""Training engine: device-resident data, the train step, per-group Adam or
+RAdam, the chunked eval render, eval metrics and the outer ``train_loop``.
+Twin of ``fruitnerf_tpu/engine/trainer.py``.
 
 Every random draw of a step is made in one place, ``draw_step``, from an
 explicit ``torch.Generator``; ``train_step`` takes the draws, so a test can
@@ -8,6 +8,7 @@ inject the JAX step's draws instead.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import signal
 import threading
@@ -21,9 +22,15 @@ from ..cameras.camera_opt import exp_map_so3xr3, init_camera_opt
 from ..cameras.cameras import Cameras, frustum_coverage, generate_image_rays, generate_rays
 from ..configs import OptimizerConfig, TrainConfig
 from ..fields.fruit_field import get_density
-from ..models.fruit_model import forward_train, init_fruit_model, loss_dict, metrics_dict
+from ..models.fruit_model import (
+    forward_train,
+    init_fruit_model,
+    loss_dict,
+    metrics_dict,
+    sampler_draw_shapes,
+)
 from ..utils import metrics as M
-from .checkpoints import save_checkpoint
+from .checkpoints import save_checkpoint, save_checkpoint_async
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +67,19 @@ def build_device_dataset(
     )
 
 
+def subsample_train_images(data: DeviceDataset, max_images: int) -> DeviceDataset:
+    """Keep at most ``max_images`` of the train images, evenly spaced over
+    them (the JAX twin's indices: the big and huge presets train on 200)."""
+    idx = data.train_indices.cpu().numpy()
+    if len(idx) <= max_images:
+        return data
+    keep = np.unique(np.linspace(0, len(idx) - 1, max_images, dtype=np.int64))
+    return dataclasses.replace(
+        data, train_indices=torch.as_tensor(idx[keep], device=data.train_indices.device))
+
+
 # ---------------------------------------------------------------------------
-# optimizer: one Adam, one parameter group per JAX label
+# optimizer: one parameter group per JAX label, each Adam or RAdam
 # ---------------------------------------------------------------------------
 
 
@@ -99,28 +117,139 @@ def _group_configs(config: TrainConfig) -> dict[str, OptimizerConfig]:
     }
 
 
-def make_optimizer(params: dict, config: TrainConfig) -> torch.optim.Adam:
-    """Adam with eps outside the sqrt, as optax's; the appearance group's
-    decoupled decay subtracts wd*lr*p, as optax's chain and AdamW do."""
+class RAdam(torch.optim.Optimizer):
+    """RAdam as optax computes it: ``scale_by_radam`` (b1 0.9, b2 0.999,
+    threshold 5), then the group's lr and its decoupled decay (wd*lr*p).
+
+    Each step's scalars (the bias corrections, rho_t and the rectifier r_t)
+    are float32, computed on the host with numpy in optax's order. From step
+    6, rho_t = rho_inf - 2t b2^t / (1 - b2^t) subtracts about 1993 from 1999,
+    so its float32 rounding moves r_t by up to 1e-2 of itself; optax rounds
+    there, and ``torch.optim.RAdam`` (Python floats) does not. The
+    elementwise work runs as ``torch._foreach_*`` calls over a group."""
+
+    B1, B2, THRESHOLD = 0.9, 0.999, 5.0
+
+    def __init__(self, groups):
+        super().__init__(groups, dict(lr=0.0, eps=1e-8, weight_decay=0.0))
+
+    @classmethod
+    def scalars(cls, count: int) -> tuple[float, float, float | None]:
+        """-> (1 - b1^t, 1 - b2^t, r_t or None below the threshold) for
+        step count t, in float32 as optax's ``scale_by_radam``."""
+        f32 = np.float32
+        t = f32(count)
+        b2t = f32(cls.B2) ** t
+        ro_inf = 2.0 / (1.0 - cls.B2) - 1.0  # a Python float, as in optax
+        ro = f32(ro_inf) - f32(2 * count) * b2t / (f32(1) - b2t)
+        r = None
+        if ro >= f32(cls.THRESHOLD):
+            num = (ro - f32(4.0)) * (ro - f32(2.0)) * f32(ro_inf)
+            r = float(np.sqrt(num / (f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro)))
+        return float(f32(1) - f32(cls.B1) ** t), float(f32(1) - b2t), r
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = self.B1, self.B2
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(step=0, exp_avg=torch.zeros_like(p),
+                                         exp_avg_sq=torch.zeros_like(p))
+            states = [self.state[p] for p in params]
+            count = states[0]["step"] + 1
+            bc1, bc2, r = self.scalars(count)
+            grads = [p.grad for p in params]
+            mu = [st["exp_avg"] for st in states]
+            nu = [st["exp_avg_sq"] for st in states]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
+            upd = torch._foreach_div(mu, bc1)  # mu_hat
+            if r is not None:
+                den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+                torch._foreach_add_(den, group["eps"])
+                upd = torch._foreach_div(torch._foreach_mul(upd, r), den)
+            lr = group["lr"]
+            torch._foreach_mul_(upd, -lr)
+            if group["weight_decay"]:
+                torch._foreach_sub_(upd, torch._foreach_mul(params, group["weight_decay"] * lr))
+            torch._foreach_add_(params, upd)
+            for st in states:
+                st["step"] = count
+
+
+class GroupOptimizer:
+    """The train state's optimizer when a group takes RAdam:
+    ``torch.optim.Adam`` over the Adam groups and ``RAdam`` over the others,
+    stepped together. ``state_dict`` holds each one's under its name."""
+
+    def __init__(self, parts: dict[str, torch.optim.Optimizer]):
+        self.parts = parts
+
+    @property
+    def param_groups(self) -> list[dict]:
+        return [g for opt in self.parts.values() for g in opt.param_groups]
+
+    def zero_grad(self, set_to_none: bool = True):
+        for opt in self.parts.values():
+            opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self):
+        for opt in self.parts.values():
+            opt.step()
+
+    def state_dict(self) -> dict:
+        return {name: opt.state_dict() for name, opt in self.parts.items()}
+
+    def load_state_dict(self, state: dict):
+        if set(state) != set(self.parts):
+            raise ValueError(f"optimizer state of {sorted(state)}; this run steps {sorted(self.parts)}")
+        for name, opt in self.parts.items():
+            opt.load_state_dict(state[name])
+
+
+def group_algorithms(optimizer) -> dict[str, str]:
+    """{group name: "adam" or "radam"} of a train state's optimizer."""
+    if isinstance(optimizer, GroupOptimizer):
+        return {g["name"]: name for name, opt in optimizer.parts.items()
+                for g in opt.param_groups}
+    return {g["name"]: "adam" for g in optimizer.param_groups}
+
+
+def make_optimizer(params: dict, config: TrainConfig):
+    """One parameter group per JAX label, each stepped by the algorithm its
+    config names. Adam has eps outside the sqrt, as optax's; the appearance
+    group's decoupled decay subtracts wd*lr*p, as optax's chain and AdamW
+    do. With every group on Adam this is one ``torch.optim.Adam``; with a
+    RAdam group, a ``GroupOptimizer``."""
     opts = _group_configs(config)
-    groups = [
-        {
-            "name": name,
-            "params": ps,
-            "lr": learning_rate(opts[name], 0, config.max_iters),
-            "eps": opts[name].eps,
-            "weight_decay": opts[name].weight_decay,
-            "decoupled_weight_decay": True,
-        }
-        for name, ps in _group_params(params).items()
-    ]
-    return torch.optim.Adam(groups)
+    groups = {"adam": [], "radam": []}
+    for name, ps in _group_params(params).items():
+        opt = opts[name]
+        if opt.name not in groups:
+            raise ValueError(f"unknown optimizer {opt.name!r} for the {name} group")
+        group = {"name": name, "params": ps, "lr": learning_rate(opt, 0, config.max_iters),
+                 "eps": opt.eps, "weight_decay": opt.weight_decay}
+        if opt.name == "adam":
+            group["decoupled_weight_decay"] = True
+        groups[opt.name].append(group)
+    if not groups["radam"]:
+        return torch.optim.Adam(groups["adam"])
+    parts = {"radam": RAdam(groups["radam"])}
+    if groups["adam"]:
+        parts["adam"] = torch.optim.Adam(groups["adam"])
+    return GroupOptimizer(parts)
 
 
 @dataclasses.dataclass
 class TrainState:
     params: dict  # {"model": {"field": ..., "proposal_networks": [...]}, "camera_opt": [N,6]}
-    optimizer: torch.optim.Adam
+    optimizer: torch.optim.Adam | GroupOptimizer
     step: int = 0
 
 
@@ -158,7 +287,9 @@ class StepDraws:
     py: torch.Tensor  # [R] int64 pixel row
     px: torch.Tensor  # [R] int64 pixel column
     jitter: torch.Tensor  # [2, R] sub-pixel offsets in [-0.5, 0.5)
-    sampler: list[torch.Tensor]  # [R, 1] uniforms in [0,1), one per sampler stage
+    # uniforms in [0,1), one tensor a sampler stage ([R, 1] with the single
+    # jitter, else one a bin: fruit_model.sampler_draw_shapes)
+    sampler: list[torch.Tensor]
     sparse_points: torch.Tensor  # [Nsp, 3] world points of the sparsity prior
 
 
@@ -178,7 +309,7 @@ def draw_step(config: TrainConfig, data: DeviceDataset, generator: torch.Generat
     slot = randint(data.train_indices.shape[0])
     py, px = randint(h), randint(w)
     jitter = rand(2, r) - 0.5
-    sampler = [rand(r, 1) for _ in range(len(mc.proposal_nets) + 1)]
+    sampler = [rand(*shape) for shape in sampler_draw_shapes(mc, r)]
     ext = mc.sparsity_extent
     sparse = rand(mc.sparsity_num_points, 3) * (2.0 * ext) - ext
     return StepDraws(slot, py, px, jitter, sampler, sparse)
@@ -226,7 +357,7 @@ def train_step(
     draws: StepDraws | None = None,
 ) -> dict[str, torch.Tensor]:
     """One step: draws (from ``generator`` unless given), loss, backward,
-    Adam. Updates ``state`` in place and returns the step's metrics as
+    the optimizer. Updates ``state`` in place and returns the step's metrics as
     device scalars (reading them synchronises)."""
     if draws is None:
         draws = draw_step(config, data, generator)
@@ -238,7 +369,7 @@ def train_step(
     for group in opt.param_groups:
         group["lr"] = learning_rate(opts[group["name"]], state.step, config.max_iters)
         for p in group["params"]:
-            if p.grad is None:  # gated proposal nets: Adam still steps on zeros
+            if p.grad is None:  # gated proposal nets: the optimizer still steps on zeros
                 p.grad = torch.zeros_like(p)
     opt.step()
     state.step += 1
@@ -347,7 +478,10 @@ def train_loop(
       evaluated, rotating through them; its stats go to ``writer`` as
       ``eval_*``.
     * Every ``steps_per_save`` steps, and at the end, the state and the
-      generator's state are checkpointed to ``checkpoint_dir``.
+      generator's state are checkpointed to ``checkpoint_dir``: copied to
+      host memory at once, written by a worker thread while training goes
+      on (``checkpoints.save_checkpoint_async``); every write has ended
+      when the loop returns.
     * With a ``checkpoint_dir``, SIGTERM and SIGINT (handled on the main
       thread only) checkpoint after the current step and return early;
       ``checkpoints.resume_from_latest`` picks the run up.
@@ -377,6 +511,14 @@ def train_loop(
         for sig in (signal.SIGTERM, signal.SIGINT):
             prev_handlers[sig] = signal.signal(sig, lambda signum, frame: stop.set())
     do_eval = eval_indices is not None and len(eval_indices) > 0
+    saver = concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt-save")
+    pending: list[concurrent.futures.Future] = []
+
+    def flush():
+        for fut in pending:
+            fut.result()  # surfaces a failed write
+        pending.clear()
+
     try:
         it = state.step
         t_train = time.perf_counter()
@@ -393,6 +535,7 @@ def train_loop(
                 _sync(dev)  # the queued steps count as training time
                 timings["train_s"] += time.perf_counter() - t_train
                 if stop.is_set():
+                    flush()
                     path = save_checkpoint(checkpoint_dir, state, generator)
                     print(f"train_loop: signal received; checkpointed step {it} to "
                           f"{path}; exiting early", flush=True)
@@ -408,19 +551,21 @@ def train_loop(
                 t1 = time.perf_counter()
                 timings["eval_s"] += t1 - t0
                 if save_now:
-                    save_checkpoint(checkpoint_dir, state, generator)
+                    pending.append(save_checkpoint_async(checkpoint_dir, state, generator, saver))
                 timings["save_s"] += time.perf_counter() - t1
                 t_train = time.perf_counter()
             for cb in callbacks:
                 cb(it, state, metrics)
         _sync(dev)
         timings["train_s"] += time.perf_counter() - t_train
+        t0 = time.perf_counter()
         if checkpoint_dir is not None and config.steps_per_save > 0 \
                 and not every(config.steps_per_save, it):
-            t0 = time.perf_counter()
-            save_checkpoint(checkpoint_dir, state, generator)
-            timings["save_s"] += time.perf_counter() - t0
+            pending.append(save_checkpoint_async(checkpoint_dir, state, generator, saver))
+        flush()
+        timings["save_s"] += time.perf_counter() - t0
         return state
     finally:
+        saver.shutdown(wait=True)
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)

@@ -118,7 +118,7 @@ def sample_volume(
     """Stream the N^3 probe grid through the field (``params``: the model's
     parameters, on the device to run on) and write the three ``.ply``
     clouds. Returns {name: {"points", "colors", "path", "overflowed"}}."""
-    dev = params["field"][model_config.field.table_key].device
+    dev = params["field"]["base_mlp"]["w0"].device
     n = export_config.num_points_per_side
     origins_np, direction_np, far = orthographic_ray_grid(export_config.aabb, n)
     batch = rays_per_batch(export_config)

@@ -1,14 +1,14 @@
 """FruitField: grid NeRF with RGB, density and a binary semantic head. Twin
-of ``fruitnerf_tpu/fields/fruit_field.py`` for ``encoding="grid"`` and
-``encoding="hash"``:
+of ``fruitnerf_tpu/fields/fruit_field.py``:
 
-  positions --contract(inf)--> [0,1]^3 --grid or hash grid--> base MLP
+  positions --contract(inf)--> [0,1]^3 --grid, hash grid or frequencies--> base MLP
       -> density (trunc_exp, f32) + geo features
   [SH(dir), geo, appearance embedding] -> color MLP -> sigmoid RGB
   detached geo -> semantic MLP -> linear head -> 1 fruit logit
 
 Appearance embeddings are indexed per training image; eval uses their mean.
-The JAX twin's "freq" encoding is still to port (ROADMAP Queue 1 item 4).
+The ``freq`` encoding (the ``tpu`` variant's) has no table: octave sines
+and cosines of the position feed a base MLP of at least four layers.
 """
 from __future__ import annotations
 
@@ -24,12 +24,13 @@ from .encodings import (
     hash_encode,
     init_grid_table,
     init_hash_table,
+    nerf_encode,
     sh_encode,
 )
 from .mlp import MLPConfig, apply_mlp, init_mlp
 
-# the parameter that holds each encoding's table
-TABLE_KEYS = {"grid": "grid_table", "hash": "hash_table"}
+# the parameter that holds each encoding's table; the freq encoding has none
+TABLE_KEYS = {"grid": "grid_table", "hash": "hash_table", "freq": None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,9 +39,11 @@ class FruitFieldConfig:
     hash: HashEncodingConfig = HashEncodingConfig()
     grid: GridEncodingConfig = GridEncodingConfig()
     # "grid": the grid variant's multiresolution grid; "hash": the
-    # instant-ngp hash grid (the parity variant and the smoke preset). The
-    # JAX twin defaults to "hash"; the port keeps "grid", its first preset's.
+    # instant-ngp hash grid (the parity variant and the smoke preset);
+    # "freq": octave frequencies of the position (the tpu variant). The JAX
+    # twin defaults to "hash"; the port keeps "grid", its first preset's.
     encoding: str = "grid"
+    pos_frequencies: int = 12  # the freq encoding's octaves
     num_layers_base: int = 2
     hidden_dim: int = 64
     geo_feat_dim: int = 15
@@ -57,25 +60,37 @@ class FruitFieldConfig:
 
     def __post_init__(self):
         if self.encoding not in TABLE_KEYS:
-            raise NotImplementedError(
-                f"FruitField encoding {self.encoding!r}: only 'grid' and 'hash' are "
-                "ported (the frequency encoding is ROADMAP Queue 1 item 4)"
+            raise ValueError(
+                f"FruitField encoding {self.encoding!r}: choose from {sorted(TABLE_KEYS)}"
             )
 
     @property
-    def encoding_config(self) -> GridEncodingConfig | HashEncodingConfig:
-        """The config of the encoding in use."""
-        return self.hash if self.encoding == "hash" else self.grid
+    def encoding_config(self) -> GridEncodingConfig | HashEncodingConfig | None:
+        """The config of the table in use; None for the freq encoding."""
+        return {"grid": self.grid, "hash": self.hash, "freq": None}[self.encoding]
 
     @property
-    def table_key(self) -> str:
+    def table_key(self) -> str | None:
         return TABLE_KEYS[self.encoding]
+
+    @property
+    def base_in_dim(self) -> int:
+        if self.encoding == "freq":
+            return 3 + 3 * 2 * self.pos_frequencies
+        return self.encoding_config.out_dim
+
+    @property
+    def base_num_layers(self) -> int:
+        # a frequency MLP needs depth to make up for the missing grid capacity
+        if self.encoding == "freq":
+            return max(self.num_layers_base, 4)
+        return self.num_layers_base
 
     @property
     def base_mlp(self) -> MLPConfig:
         return MLPConfig(
-            in_dim=self.encoding_config.out_dim,
-            num_layers=self.num_layers_base,
+            in_dim=self.base_in_dim,
+            num_layers=self.base_num_layers,
             hidden_dim=self.hidden_dim,
             out_dim=1 + self.geo_feat_dim,
         )
@@ -112,9 +127,12 @@ class FruitFieldConfig:
 def init_fruit_field(
     config: FruitFieldConfig, generator: torch.Generator, device
 ) -> dict:
-    init_table = init_hash_table if config.encoding == "hash" else init_grid_table
+    params = {}
+    if config.table_key is not None:
+        init_table = init_hash_table if config.encoding == "hash" else init_grid_table
+        params[config.table_key] = init_table(config.encoding_config, generator, device)
     return {
-        config.table_key: init_table(config.encoding_config, generator, device),
+        **params,
         "base_mlp": init_mlp(config.base_mlp, generator, device),
         "color_mlp": init_mlp(config.color_mlp, generator, device),
         "semantic_mlp": init_mlp(config.semantic_mlp, generator, device),
@@ -142,8 +160,11 @@ def get_density(
         if aabb is None:
             raise ValueError("get_density(contraction=False) needs an aabb")
         pos01, selector = normalize_aabb_to_unit(positions, aabb)
-    encode = hash_encode if config.encoding == "hash" else grid_encode
-    h = encode(params[config.table_key], pos01, config.encoding_config)
+    if config.encoding == "freq":
+        h = nerf_encode(pos01 * 2.0 - 1.0, config.pos_frequencies)
+    else:
+        encode = hash_encode if config.encoding == "hash" else grid_encode
+        h = encode(params[config.table_key], pos01, config.encoding_config)
     out = apply_mlp(params["base_mlp"], h, config.base_mlp, config.compute_dtype)
     density = trunc_exp(out[..., 0] + config.density_bias) * selector
     return density, out[..., 1:]

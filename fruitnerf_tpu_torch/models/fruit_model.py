@@ -1,9 +1,11 @@
-"""FruitModel: nerfacto-style semantic NeRF, its train/eval forward and its
-export forward. Twin of ``fruitnerf_tpu/models/fruit_model.py`` (the
-inference forward is still to port).
+"""FruitModel: nerfacto-style semantic NeRF, its train/eval forward, its
+inference forward and its export forward. Twin of
+``fruitnerf_tpu/models/fruit_model.py``.
 
 Proposal annealing and the proposal-update cadence are functions of the
-step, which the trainer keeps on the host.
+step, which the trainer keeps on the host. ``proposal_initial_sampler=
+"uniform"`` spaces every sampler stage uniformly, as the JAX twin does (the
+reference leaves the sampler unset in that branch).
 """
 from __future__ import annotations
 
@@ -54,6 +56,9 @@ class FruitModelConfig:
     near_plane: float = 0.05
     far_plane: float = 1000.0
     background_color: str = "last_sample"
+    proposal_initial_sampler: str = "piecewise"  # or "uniform"
+    # one sampler jitter a ray (True) or one a bin (False)
+    use_single_jitter: bool = True
     semantic_loss_weight: float = 1.0
     interlevel_loss_mult: float = 1.0
     # distortion is a metric; it joins the loss only when switched on
@@ -67,6 +72,7 @@ class FruitModelConfig:
     sparsity_cell: float = 0.01
     # prior multiplier at points outside every training frustum; 1 = off
     sparsity_unobserved_boost: float = 8.0
+    use_proposal_weight_anneal: bool = True  # False: the anneal exponent is 1
     proposal_weights_anneal_max_num_iters: int = 1000
     proposal_weights_anneal_slope: float = 10.0
     proposal_update_every: int = 5
@@ -99,7 +105,10 @@ def init_fruit_model(
 
 def proposal_anneal(step: int, config: FruitModelConfig) -> float:
     """w**anneal exponent: bias(x, b) = b*x / ((b-1)*x + 1) on the fraction
-    of the anneal window, in float32 as the JAX twin computes it."""
+    of the anneal window, in float32 as the JAX twin computes it; 1 with
+    the anneal switched off."""
+    if not config.use_proposal_weight_anneal:
+        return 1.0
     n = config.proposal_weights_anneal_max_num_iters
     x = np.clip(np.float32(step) / np.float32(n), 0.0, 1.0).astype(np.float32)
     b = np.float32(config.proposal_weights_anneal_slope)
@@ -115,6 +124,16 @@ def proposal_updated(step: int, config: FruitModelConfig) -> bool:
     m = min(max(m, np.float32(1.0)), np.float32(config.proposal_update_every))
     m_int = max(int(np.round(m)), 1)
     return step < 10 or step % m_int == 0
+
+
+def sampler_draw_shapes(config: FruitModelConfig, num_rays: int) -> list[tuple[int, int]]:
+    """The shape of each sampler stage's uniforms (``forward_train``'s
+    ``uniforms``): [R, 1] with the single jitter; else one a bin, [R, n+1]
+    for the initial spaced sampler and [R, N+1] for each PDF resampling."""
+    if config.use_single_jitter:
+        return [(num_rays, 1)] * (len(config.proposal_nets) + 1)
+    counts = (*config.num_proposal_samples[1:], config.num_nerf_samples)
+    return [(num_rays, config.num_proposal_samples[0] + 1)] + [(num_rays, n + 1) for n in counts]
 
 
 def forward_train(
@@ -148,6 +167,7 @@ def forward_train(
         train=train,
         uniforms=uniforms,
         anneal=proposal_anneal(step, config) if train else 1.0,
+        initial_spacing=config.proposal_initial_sampler,
     )
     field_out = fruit_field_forward(
         params["field"], samples.positions(), bundle.directions,
@@ -166,6 +186,14 @@ def forward_train(
         "weights_list": weights_list,
         "sdist_list": [rs.spacing_bins() for rs in rs_list],
     }
+
+
+def forward_inference(params: dict, bundle: RayBundle, config: FruitModelConfig) -> dict:
+    """Inference forward: the eval forward with the semantic colormap
+    repeated to 3 channels for viewing."""
+    out = forward_train(params, bundle, config, uniforms=None, step=1 << 30, train=False)
+    out["semantics_colormap"] = out["semantics_colormap"].repeat_interleave(3, dim=-1)
+    return out
 
 
 def forward_export(

@@ -234,7 +234,7 @@ def main(args):
                 f"resume of {out}: --camera-elevation gives {elevation}, the run was "
                 f"trained on {manifest.get('camera_elevation')}"
             )
-        ck.grid_from_manifest(manifest, expect=grid)
+        ck.table_from_manifest(manifest, config.model.field)
         state, _ = ck.resume_from_latest(ckpt_dir, init_train_state(config, n, dev), gen)
         print(f"resuming from step {state.step}", flush=True)
     else:

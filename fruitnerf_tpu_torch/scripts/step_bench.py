@@ -1,12 +1,16 @@
 """Time, profile and repeat train steps of the presets on a synthetic scene.
 
-    python -m fruitnerf_tpu_torch.scripts.step_bench [--config grid smoke parity]
-        [--steps 30] [--profile 10] [--repeat] [--seed 0] [--json PATH]
+    python -m fruitnerf_tpu_torch.scripts.step_bench
+        [--config grid smoke parity big huge tpu] [--steps 30] [--profile 10]
+        [--repeat] [--seed 0] [--json PATH]
 
 The configurations: ``grid`` is the ``fruit_nerf`` preset's grid variant
 (cell mode), ``smoke`` the smoke preset, ``parity`` the parity variant (the
-reference's hash grid); ``grid`` and ``parity`` carry the orchard's
-sparsity prior (0.005), as ``orchard-e2e`` trains them. Each trains on a
+reference's hash grid), ``big`` the ``fruit_nerf_big`` preset's grid
+variant, ``huge`` the ``fruit_nerf_huge`` preset's parity variant and
+``tpu`` the ``fruit_nerf`` preset's tpu variant (the frequency field, no
+table); ``grid``, ``parity`` and ``big`` carry the sparsity prior (0.005),
+as ``orchard-e2e`` and ``chip_smoke.py`` train them. Each trains on a
 128^2, 24-camera synthetic scene at its full width. For each it prints and
 returns:
 
@@ -39,12 +43,21 @@ REPEAT_STEPS = 5
 
 def configs(num_images: int) -> dict:
     """The configurations by name (see the module docstring)."""
-    from ..configs import apply_overrides, fruit_nerf, fruit_nerf_smoke
+    from ..configs import (
+        apply_overrides,
+        fruit_nerf,
+        fruit_nerf_big,
+        fruit_nerf_huge,
+        fruit_nerf_smoke,
+    )
 
     prior = {"sparsity_loss": 0.005}
     return {"grid": apply_overrides(fruit_nerf(num_images), prior),
             "smoke": fruit_nerf_smoke(num_images),
-            "parity": apply_overrides(fruit_nerf(num_images, variant="parity"), prior)}
+            "parity": apply_overrides(fruit_nerf(num_images, variant="parity"), prior),
+            "big": apply_overrides(fruit_nerf_big(num_images), prior),
+            "huge": fruit_nerf_huge(num_images, variant="parity"),
+            "tpu": fruit_nerf(num_images, variant="tpu")}
 
 
 def _sync(dev: torch.device):
@@ -127,7 +140,8 @@ def profile_steps(cfg, data, seed: int, steps: int) -> dict:
     busy = sum(dev_us(r) for r in kernels) / 1e3 / steps
     ops = [r for r in prof.key_averages(group_by_input_shape=True)
            if not str(r.device_type).endswith("CUDA")]
-    table = str(list(cfg.model.field.encoding_config.table_shape))
+    enc = cfg.model.field.encoding_config
+    table = "no table" if enc is None else str(list(enc.table_shape))
 
     def group(pred) -> dict:
         hit = [r for r in ops if pred(r.key, str(r.input_shapes))]
@@ -143,7 +157,7 @@ def profile_steps(cfg, data, seed: int, steps: int) -> dict:
             lambda k, sh: k in ("aten::fill_", "aten::zero_") and sh.startswith(f"[{table}")),
         "adds of two main-table-sized tensors": group(
             lambda k, sh: k.startswith("aten::add") and sh.startswith(f"[{table}, {table}")),
-        "Adam (aten::_foreach_*, _fused_adam)": group(
+        "optimizer (aten::_foreach_*, _fused_adam)": group(
             lambda k, sh: k.startswith(("aten::_foreach", "aten::_fused_adam"))),
         "matmuls (aten::mm, addmm, bmm)": group(
             lambda k, sh: k in ("aten::mm", "aten::addmm", "aten::bmm")),
@@ -160,7 +174,7 @@ def profile_steps(cfg, data, seed: int, steps: int) -> dict:
 
 def add_args(p: argparse.ArgumentParser):
     p.add_argument("--config", nargs="+", default=["grid", "smoke", "parity"],
-                   choices=["grid", "smoke", "parity"])
+                   choices=["grid", "smoke", "parity", "big", "huge", "tpu"])
     p.add_argument("--steps", type=int, default=30, help="timed steps a configuration")
     p.add_argument("--profile", type=int, default=0,
                    help="profiled steps a configuration (0: no profile; the card only)")

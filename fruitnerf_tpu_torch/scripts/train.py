@@ -10,9 +10,12 @@ scene. The run directory receives ``manifest.json`` (what ``export``,
 ``eval`` and ``render`` read), ``checkpoints/`` and ``metrics.jsonl``. It
 runs on the card unless ``--device cpu`` asks for the CPU.
 
-Unlike the twin, the manifest of a capture run records the
-``--downscale-factor`` it was trained at (null: the dataparser's automatic
-rule), and ``eval`` and ``render`` parse the capture again at it.
+The big and huge presets train on at most 200 of the train images
+(``max_train_images``, evenly spaced); the manifest records how many were
+kept (``num_train_images``). Unlike the twin, the manifest of a capture run
+records the ``--downscale-factor`` it was trained at (null: the
+dataparser's automatic rule), and ``eval`` and ``render`` parse the capture
+again at it.
 """
 from __future__ import annotations
 
@@ -59,7 +62,12 @@ def main(args):
 
     from ..configs import apply_overrides, run_preset
     from ..engine.checkpoints import resume_from_latest, write_manifest
-    from ..engine.trainer import evaluate_all, init_train_state, train_loop
+    from ..engine.trainer import (
+        evaluate_all,
+        init_train_state,
+        subsample_train_images,
+        train_loop,
+    )
     from ..utils import resolve_device
     from ..utils.writer import MetricWriter
 
@@ -107,11 +115,14 @@ def main(args):
     config = dataclasses.replace(
         config, seed=args.seed, max_iters=args.max_iters or config.max_iters
     )
+    if config.max_train_images is not None:
+        data = subsample_train_images(data, config.max_train_images)
     write_manifest(
         out_dir, preset=config.preset, num_images=num_images,
         grid=config.model.field.encoding_config, **frame,
         extra={"variant": args.variant, "max_iters": config.max_iters,
-               "train_split_fraction": split, "config_overrides": overrides, **capture},
+               "train_split_fraction": split, "config_overrides": overrides,
+               "num_train_images": len(data.train_indices), **capture},
     )
 
     gen = torch.Generator(device=dev).manual_seed(config.seed)

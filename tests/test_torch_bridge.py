@@ -101,7 +101,10 @@ def test_preset_and_overrides_match_jax(overrides):
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        configs.fruit_nerf(3, variant="tpu")
+    """Every variant of the JAX package is ported; a name it does not have
+    raises (the tpu variant builds, with its tableless field)."""
+    with pytest.raises(KeyError, match="variant"):
+        configs.fruit_nerf(3, variant="tpu_v2")
+    assert configs.fruit_nerf(3, variant="tpu").model.field.encoding == "freq"
     with pytest.raises(ValueError, match="power of two"):
         GridEncodingConfig(table_size=3000)

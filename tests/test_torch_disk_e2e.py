@@ -4,9 +4,10 @@ the JAX package cannot be imported, on the CPU through ``--device cpu``:
 the port's ``write_scene_capture`` writes a capture tree, then ``train --data <tree>`` -> ``eval`` -> ``render`` ->
 ``export`` -> ``count``. The manifest is held to the JAX package's
 ``parse_transforms`` of the same tree, and the port's capture writer to the
-JAX package's. The full mirror of tests/test_disk_e2e.py (800 steps, its
-cloud and count checks; process-data is not ported, so it trains on the
-capture as written) is marked ``slow``."""
+JAX package's. ``process-data`` then a few ``fruit_nerf_big`` steps and
+``eval`` run the same way. The mirror of tests/test_disk_e2e.py from its
+step 2 (800 steps, its cloud and count checks, on the capture as written)
+is marked ``slow``."""
 import json
 
 import numpy as np
@@ -128,3 +129,26 @@ def test_disk_pipeline_end_to_end(tmp_path):
     assert float((d < 2.0 * FRUIT_RADIUS).mean()) > 0.5
     row = _count(exp, tmp_path / "count.json", FRUIT_RADIUS)
     assert 1 <= row["count"] <= 3 * NUM_FRUITS, row
+
+
+def test_process_data_then_big_preset_without_jax(tmp_path):
+    """process-data on a raw capture, three ``fruit_nerf_big`` steps (the
+    preset's RAdam, its 0.99 split and its full layout, at 64 rays) on the
+    processed tree, then eval of the run."""
+    scene = _scene(10, 24)
+    raw, tree, run = tmp_path / "raw", tmp_path / "capture", tmp_path / "run"
+    write_scene_capture(scene, raw, eval_fraction=0.2)
+    cli("process-data", "--data", raw / "images", "--data-semantic", raw / "masks",
+        "--transforms", raw / "transforms.json", "--output-dir", tree, "--num-downscales", 1)
+    meta = json.loads((tree / "transforms.json").read_text())
+    assert all(fr["semantic_path"].startswith("semantics/") for fr in meta["frames"])
+    assert len(meta["val_filenames"]) == 2
+    cli("train", "--preset", "fruit_nerf_big", "--data", tree, "--output-dir", run,
+        "--max-iters", 3, "--train-rays-per-batch", 64, "--device", "cpu")
+    manifest = json.loads((run / "manifest.json").read_text())
+    assert manifest["preset"] == "fruit_nerf_big" and manifest["num_train_images"] == 8
+    cli("eval", "--load-dir", run, "--data", tree, "--output", tmp_path / "eval.json",
+        "--device", "cpu")
+    stats = json.loads((tmp_path / "eval.json").read_text())
+    assert stats["step"] == 3 and stats["num_images_evaluated"] == 2
+    assert np.isfinite(stats["psnr"])

@@ -243,5 +243,9 @@ def test_hash_fruit_field_matches_jax():
 
 
 def test_freq_encoding_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tff.FruitFieldConfig(num_images=1, encoding="freq")
+    """The freq encoding is ported now (tests/test_torch_freq_field.py): it
+    builds with no table; an encoding the JAX package lacks raises."""
+    cfg = tff.FruitFieldConfig(num_images=1, encoding="freq")
+    assert cfg.table_key is None and cfg.encoding_config is None
+    with pytest.raises(ValueError, match="encoding"):
+        tff.FruitFieldConfig(num_images=1, encoding="octree")

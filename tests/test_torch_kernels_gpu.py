@@ -3,8 +3,10 @@ grid_encode_flat) against their plain PyTorch versions, on a card: the
 tiled kernels also at ray-ordered points, with every point in one cell
 (and the corner kernels at hash collisions inside a warp and at F = 1 to
 8), at 1 to 32 levels and at a P that is no multiple of their tile; the
-corner kernels at the parity variant's hash layouts through ``hash_encode``;
-two training runs from one seed, which must be bitwise equal; and the disk
+corner kernels at the parity variant's and the huge preset's hash layouts
+through ``hash_encode`` (and at a huge step's 8,388,608 points), the cell
+kernels at the big preset's layout through ``grid_encode``; two training
+runs from one seed, which must be bitwise equal; and the disk
 capture workflow on the card: ``train --data <capture>`` launches K1/K2 as
 predicted, ``eval`` and ``render`` run on the card by default, and LPIPS
 there equals LPIPS on the CPU. Every test
@@ -252,15 +254,20 @@ def test_tiled_corner_kernels_match_plain(dev, kind, num_levels, features):
     assert none is None and torch.equal(dt_only, dt)
 
 
-@pytest.mark.parametrize("family", ["cell", "corner"])
+HUGE_P = 16384 * 512  # a fruit_nerf_huge step's samples in each proposal field
+
+
+@pytest.mark.parametrize("family", ["cell", "corner", "corner at the huge step's P"])
 def test_backward_sums_dtable_in_fixed_point(dev, family):
     """K2 and K4 sum dTable in 64-bit fixed point at a power-of-two scale
     a gradient column (csrc/fixed_sum.cuh), at every point in one cell (the
     most adds onto one entry): launches repeat bitwise; the scale follows
     the gradient's magnitude; a NaN in one column of the gradient makes that
     column of dTable NaN and leaves every other entry as it was; no points
-    give a zero dTable."""
+    give a zero dTable. The last case puts HUGE_P = 8,388,608 points in the
+    cell: the scale leaves the int64 sums their headroom there too."""
     g = torch.Generator(device=dev).manual_seed(5)
+    huge = family.endswith("P")
     if family == "cell":
         layout = _levels(5)
         table = torch.rand((layout.total_rows, 16), generator=g, device=dev) * 2 - 1
@@ -279,7 +286,8 @@ def test_backward_sums_dtable_in_fixed_point(dev, family):
 
         def plain(t, p):
             return hg.grid_encode_corner_torch(t, p, layout, 2)
-    pos = _points(dev, g, "one_cell")
+    pos = (_points(dev, g, "one_cell", n_rays=HUGE_P // 64, samples=64, extra=0) if huge
+           else _points(dev, g, "one_cell"))
     grad = torch.randn((pos.shape[0], 2 * layout.num_levels), generator=g, device=dev)
     dt, dp = bwd(table, pos, grad)
     for _ in range(3):
@@ -448,6 +456,87 @@ def test_corner_kernels_at_the_parity_layouts(dev, name, kind):
     ref = hg.grid_encode_corner_torch(t_p, p_p, layout, enc.features_per_level)
     ref.backward(grad)
     torch.testing.assert_close(out, ref, atol=FWD_ATOL, rtol=0)
+    assert _rel(t_k.grad, t_p.grad) <= BWD_RTOL and _rel(p_k.grad, p_p.grad) <= BWD_RTOL
+
+
+def _huge_layouts():
+    """(name, HashEncodingConfig) of fruit_nerf_huge's parity hash grids."""
+    from fruitnerf_tpu_torch.configs import fruit_nerf_huge
+
+    m = fruit_nerf_huge(1, variant="parity").model
+    return [("main", m.field.hash)] + [(f"proposal{i}", p.hash)
+                                       for i, p in enumerate(m.proposal_nets)]
+
+
+@pytest.mark.parametrize("kind", ["random", "ray_ordered"])
+@pytest.mark.parametrize("name", ["main", "proposal0", "proposal1"])
+def test_corner_kernels_at_the_huge_layouts(dev, name, kind):
+    """K3/K4 at fruit_nerf_huge's parity layouts (the main field: 16
+    levels, T = 2^21, res 16..8192, a 256 MiB table; each proposal field: 7
+    levels, T = 2^18) against the plain version through ``hash_encode``."""
+    from fruitnerf_tpu_torch.fields.encodings import hash_encode
+
+    enc = dict(_huge_layouts())[name]
+    layout = enc.table_layout()
+    assert layout.direct[0] and not layout.direct[-1]
+    g = torch.Generator(device=dev).manual_seed(len(name) + 1)
+    table = torch.rand(enc.table_shape, generator=g, device=dev) * 2 - 1
+    pos = (torch.rand((20000, 3), generator=g, device=dev) * 0.999 if kind == "random"
+           else _points(dev, g, "ray_ordered"))
+    grad = torch.randn((pos.shape[0], enc.out_dim), generator=g, device=dev)
+    t_k, p_k = table.clone().requires_grad_(True), pos.clone().requires_grad_(True)
+    hash_encode(t_k, p_k, enc).backward(grad)
+    t_p, p_p = table.clone().requires_grad_(True), pos.clone().requires_grad_(True)
+    ref = hg.grid_encode_corner_torch(t_p, p_p, layout, enc.features_per_level)
+    ref.backward(grad)
+    torch.testing.assert_close(hash_encode(table, pos, enc), ref.detach(), atol=FWD_ATOL, rtol=0)
+    assert _rel(t_k.grad, t_p.grad) <= BWD_RTOL and _rel(p_k.grad, p_p.grad) <= BWD_RTOL
+
+
+@pytest.mark.parametrize("name", ["proposal0", "proposal1"])
+def test_corner_kernels_at_the_huge_steps_points(dev, name):
+    """K3/K4 at HUGE_P = 8,388,608 ray-ordered points (a huge step's
+    samples in each proposal field; 117M outputs) at its layout, against
+    the plain version: no index overflows past 2^31."""
+    enc = dict(_huge_layouts())[name]
+    layout, f = enc.table_layout(), enc.features_per_level
+    g = torch.Generator(device=dev).manual_seed(11)
+    table = torch.rand(enc.table_shape, generator=g, device=dev) * 2 - 1
+    pos = _points(dev, g, "ray_ordered", n_rays=HUGE_P // 512, samples=512, extra=0)
+    grad = torch.randn((pos.shape[0], enc.out_dim), generator=g, device=dev)
+    out = hg.corner_encode_fwd_cuda(table, pos, layout, f)
+    dt, dp = hg.corner_encode_bwd_cuda(table, pos, grad, layout, f, True)
+    t_p, p_p = table.clone().requires_grad_(True), pos.clone().requires_grad_(True)
+    ref = hg.grid_encode_corner_torch(t_p, p_p, layout, f)
+    ref.backward(grad)
+    torch.testing.assert_close(out, ref.detach(), atol=FWD_ATOL, rtol=0)
+    assert _rel(dt, t_p.grad) <= BWD_RTOL and _rel(dp, p_p.grad) <= BWD_RTOL
+
+
+@pytest.mark.parametrize("kind", ["random", "ray_ordered"])
+def test_cell_kernels_at_the_big_layout(dev, kind):
+    """K1/K2 at fruit_nerf_big's grid layout (16 levels of up to 16384
+    rows, res 16..4096, no two-tier cap) through ``grid_encode``, against
+    the plain version."""
+    from fruitnerf_tpu_torch.configs import fruit_nerf_big
+    from fruitnerf_tpu_torch.fields.encodings import grid_encode
+
+    grid = fruit_nerf_big(1).model.field.grid
+    layout = grid.cell_layout()
+    g = torch.Generator(device=dev).manual_seed(13)
+    table = torch.rand(grid.table_shape, generator=g, device=dev) * 2 - 1
+    pos = (torch.rand((20000, 3), generator=g, device=dev) * 0.999 if kind == "random"
+           else _points(dev, g, "ray_ordered"))
+    grad = torch.randn((pos.shape[0], 2 * layout.num_levels), generator=g, device=dev)
+    t_k, p_k = table.clone().requires_grad_(True), pos.clone().requires_grad_(True)
+    before = dict(hg.LAUNCHES)
+    grid_encode(t_k, p_k, grid).backward(grad)
+    assert hg.LAUNCHES["cell_encode_fwd"] == before["cell_encode_fwd"] + 1
+    assert hg.LAUNCHES["cell_encode_bwd"] == before["cell_encode_bwd"] + 1
+    t_p, p_p = table.clone().requires_grad_(True), pos.clone().requires_grad_(True)
+    ref = hg.cell_encode_torch(t_p, p_p, layout)
+    ref.backward(grad)
+    torch.testing.assert_close(grid_encode(table, pos, grid), ref.detach(), atol=FWD_ATOL, rtol=0)
     assert _rel(t_k.grad, t_p.grad) <= BWD_RTOL and _rel(p_k.grad, p_p.grad) <= BWD_RTOL
 
 

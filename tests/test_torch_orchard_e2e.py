@@ -179,26 +179,24 @@ def test_unported_options_raise(argv, item):
         port_cli.main(argv)
 
 
-SERVED = {("fruit_nerf_smoke", "grid"), ("fruit_nerf", "parity")}
-
-
 @pytest.mark.parametrize("name, variant", [("fruit_nerf_big", "grid"), ("fruit_nerf_smoke", "grid"),
                                            ("fruit_nerf", "tpu"), ("fruit_nerf", "parity")])
 def test_get_preset_serves_only_the_ported_preset(name, variant):
-    """The smoke preset (which takes no variant) and the parity variant build,
-    init and run one eval forward; the big preset and the tpu variant raise,
-    naming the ROADMAP item that ports them."""
+    """Every preset and variant is ported now: each builds, inits and runs
+    one eval forward, its field encoded as the variant says (the smoke
+    preset takes no variant and encodes with a hash grid)."""
     assert configs.get_preset("fruit_nerf", 5) == configs.fruit_nerf(5)
     kw = {} if name == "fruit_nerf_smoke" else {"variant": variant}
-    if (name, variant) not in SERVED:
-        with pytest.raises(NotImplementedError, match="item 4"):
-            configs.get_preset(name, 5, **kw)
-        return
     cfg = configs.get_preset(name, 5, **kw)
-    assert cfg.model.field.encoding == "hash"
-    assert all(isinstance(c, DensityFieldConfig) for c in cfg.model.proposal_nets)
+    want = "hash" if name == "fruit_nerf_smoke" else {"grid": "grid", "tpu": "freq",
+                                                       "parity": "hash"}[variant]
+    assert cfg.model.field.encoding == want
+    if want == "hash":
+        assert all(isinstance(c, DensityFieldConfig) for c in cfg.model.proposal_nets)
     params = init_fruit_model(cfg.model, torch.Generator().manual_seed(0), "cpu")
-    assert params["field"]["hash_table"].shape == cfg.model.field.hash.table_shape
+    key = cfg.model.field.table_key
+    if key is not None:
+        assert params["field"][key].shape == cfg.model.field.encoding_config.table_shape
     g = torch.Generator().manual_seed(1)
     bundle = RayBundle(torch.rand((4, 3), generator=g) - 0.5, torch.nn.functional.normalize(
         torch.randn((4, 3), generator=g), dim=-1), torch.zeros(4), torch.full((4,), 2.0),
