@@ -8,8 +8,10 @@ fruit-counting main path, ``orchard-e2e``, on the bench orchard, with the
 grid variant and with the parity variant (the reference's hash-grid
 network), train the smoke preset through the ``train`` entry point, run
 the disk capture workflow (train --data <dir>, eval, render, export,
-count) on the bench orchard written as a capture, and take a raw capture
-through process-data into the big, huge and tpu training configurations.
+count) on the bench orchard written as a capture, take a raw capture
+through process-data into the big, huge and tpu training configurations,
+and run the tools (suggest-crop, the RGB point cloud, the viewer, the
+device DBSCAN engine, speed-probe, profiling) on those runs.
 
     python3 chip_smoke.py [--steps 400] [--seed 0]
     python3 chip_smoke.py --ab-cell-source OTHER/cell_encode.cu [--steps 200]
@@ -111,17 +113,34 @@ Phases, each printing its lines:
            tpu   train --preset fruit_nerf --variant tpu (the frequency
                  field) for TPU_ITERS steps: finite losses, train PSNR
                  rising, no grid-kernel launch, a finite final eval
+           tools (tools_phase, on the big and huge runs before their
+                 directory goes): suggest-crop --grid TOOLS_GRID on big (more
+                 than half the GT fruit centres inside the semantic AABB, K1
+                 once a probe batch); export --mode pointcloud --data
+                 <capture> of POINTCLOUD_CAMERAS cameras, subsampled to
+                 POINTCLOUD_POINTS points (a non-empty finite
+                 cloud, colours in [0, 1], K1 once a render chunk); the
+                 viewer on big through serve(port=0) (/, /info, /render of
+                 each panel full, preview and with a crop box, /suggest;
+                 seconds a frame) and one huge parity frame (K3 once a chunk
+                 in each field); dbscan_device and
+                 radius_neighbor_mask_device on the card against the native
+                 engine (same noise set, core labels and mask; seconds of
+                 each) on big's fruit cloud and on 504,000 points on the GT
+                 fruit shells; speed-probe --only SPEED_CANDIDATES (rays/s);
+                 TRACE_STEPS grid steps under StepTimer and device_trace (a
+                 Chrome trace that holds the cell kernels)
            then K1/K2 held and timed at the big run's last step's positions
            (16 levels of up to 16384 rows) and K3/K4 at the huge run's (the
            main field's fine samples at 16 x 2^21, each proposal field's
            8,388,608 samples at 7 x 2^18)
 Then one JSON line of the six kernels (K1/K2's launches summed over the cell
-slice, the orchard phase's, the disk phase's and the big run's counted
-calls, K3/K4's over the corner slice, the parity orchard, the smoke run and
-the huge run; the K1-K4 entries also carry their step-layout numbers, K1's
-its export-batch ones, K3/K4's the parity layouts' at random points and at
-the parity step's and the huge step's (huge_step), K1/K2's the big step's
-(big_step)), the card line,
+slice, the orchard phase's, the disk phase's, the big run's and the tools'
+counted calls, K3/K4's over the corner slice, the parity orchard, the smoke
+run, the huge run and the tools; the K1-K4 entries also carry their
+step-layout numbers, K1's its export-batch ones, K3/K4's the parity
+layouts' at random points and at the parity step's and the huge step's
+(huge_step), K1/K2's the big step's (big_step)), the card line,
 and as the last line {"ok": true, "device": {...}}. It fails if jax or any
 module of the JAX package (fruitnerf_tpu) was imported. Any failure raises
 and exits non-zero; with no CUDA device it exits non-zero before printing
@@ -145,6 +164,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -162,7 +182,8 @@ BWD_RTOL = 1e-4  # backward kernels: relative to each gradient's max; atomics re
 LOSS_RTOL = 1e-4  # small-input step, GPU against CPU, float32
 GRAD_RTOL = 1e-3  # its gradients, relative to each one's max magnitude
 P_SLICE = 4096 * 48 + 4096  # fine samples plus sparsity points of one step
-ORCHARD_ITERS = 2000  # the orchard phase's steps: a few minutes on the card
+ORCHARD_ITERS = 1500  # the orchard phase's steps (2000 until the tools phase came; the
+# script must stay under 600 s on a slow host)
 EXPORT_N = 256  # its export's probe grid side: 2^24 probes in 4 batches
 PARITY_ITERS = 1000  # the parity variant's orchard steps
 LARGE_P = 2_000_000  # above this many points a kernel pair's medians are of 10 runs, not 30
@@ -1803,10 +1824,11 @@ def tpu_phase(tree: Path, root: Path, dev, hg, name: str, seed: int) -> dict:
 
 
 def presets_phase(dev, hg, name: str, seed: int) -> dict:
-    """The big, huge and tpu phases on one processed capture, and K1/K2 at
-    the big step's positions and K3/K4 at the huge step's, each at its own
-    layout. -> {"big", "huge", "tpu": launches; "big_step", "huge_step":
-    the kernel pairs' numbers there}."""
+    """The big, huge and tpu phases on one processed capture, the tools
+    phase on their runs, and K1/K2 at the big step's positions and K3/K4 at
+    the huge step's, each at its own layout. -> {"big", "huge", "tpu":
+    launches; "big_step", "huge_step": the kernel pairs' numbers there;
+    "tools": the tools phase's}."""
     from fruitnerf_tpu_torch.configs import fruit_nerf_big, fruit_nerf_huge
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1815,13 +1837,321 @@ def presets_phase(dev, hg, name: str, seed: int) -> dict:
         big, big_pos = big_phase(scene, tree, root, process_s, dev, hg, name, seed)
         huge, huge_pos = huge_phase(tree, root, dev, hg, name, seed)
         tpu = tpu_phase(tree, root, dev, hg, name, seed)
+        tools = tools_phase(scene, tree, root, dev, hg, seed)
     layout = fruit_nerf_big(1).model.field.grid.cell_layout()
     big_step = step_layout(lambda t, p, gr, label: cell_pair(hg, layout, label, t, p, gr),
                            layout, 16, 2 * layout.num_levels, big_pos, dev, seed,
                            "K1/K2 big (16 levels x 16384 rows, 16..4096)")
     huge_step = hash_step_layouts(hg, fruit_nerf_huge(1, variant="parity"), huge_pos, dev, seed)
-    return {"big": big, "huge": huge, "tpu": tpu, "big_step": big_step, "huge_step": huge_step}
+    return {"big": big, "huge": huge, "tpu": tpu, "big_step": big_step, "huge_step": huge_step,
+            "tools": tools}
 
+
+# ---------------------------------------------------------------------------
+# the tools: suggest-crop, the RGB point cloud, the viewer, the device DBSCAN
+# engine, speed-probe, profiling
+# ---------------------------------------------------------------------------
+
+TOOLS_GRID = 128  # suggest-crop's probe grid: 128^2 rays of 128 samples, one batch
+POINTCLOUD_CAMERAS = 12
+POINTCLOUD_POINTS = 200_000  # the export's --num-points, of 12 x 256^2 pixels: keeps its
+# outlier counts (native, on the host) short
+VIEW_SIZE = 256  # viewer frames: 2 render chunks each at 32768 rays a chunk
+SHELL_POINTS = 4200  # a synthetic fruit shell's points: 120 shells, 504,000 points
+SPEED_CANDIDATES = "default_mid4096f4,uniform_T8192"
+TRACE_STEPS = 5
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _get(url: str) -> tuple[bytes, float]:
+    """GET from the viewer on this machine: -> (body, seconds)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(url, timeout=300) as r:
+        check(r.status == 200, f"tools: viewer {url} answered {r.status}")
+        body = r.read()
+    return body, time.perf_counter() - t0
+
+
+def suggest_crop_tool(run_dir: Path, root: Path, manifest: dict, scene: dict, hg,
+                      counts: dict) -> dict:
+    """``suggest-crop --grid TOOLS_GRID`` on a capture run: more than half
+    of the GT fruit centres (in the probe frame) inside the semantic AABB,
+    K1 once a probe batch."""
+    from fruitnerf_tpu_torch.scripts import suggest_crop
+
+    with counted_calls(suggest_crop, "occupancy_grids", hg, counts):
+        t0 = time.perf_counter()
+        report = run_cli(suggest_crop, ["--load-dir", run_dir, "--output-dir", root / "crop",
+                                        "--grid", TOOLS_GRID])
+        seconds = time.perf_counter() - t0
+    gt, _ = gt_in_capture(manifest, scene)
+    gt_box = gt * manifest["dataparser_scale"] / APPLIED_SCALE / 2.0  # the probe frame
+    box = report["semantic_aabb"]
+    check(box is not None, "tools: suggest-crop found no semantic cell")
+    lo, hi = np.asarray(box)
+    inside = float(((gt_box >= lo) & (gt_box <= hi)).all(1).mean())
+    batches = math.ceil(TOOLS_GRID**2 / 16384)
+    got = counts["occupancy_grids"][-1]
+    print(f"tools: suggest-crop --grid {TOOLS_GRID} on the big run in {seconds:.3f} s: "
+          f"{report['density_cells']} density and {report['semantic_cells']} semantic cells, "
+          f"semantic AABB {box}; {inside:.4f} of the {len(gt)} GT fruit centres inside; "
+          f"launches {_nonzero(got)} for {batches} probe batches")
+    check(inside > 0.5, f"tools: only {inside:.2%} of the GT centres lie in the semantic AABB")
+    check(got["cell_encode_fwd"] == batches and sum(got.values()) == batches,
+          f"tools: suggest-crop launched {got} for {batches} batches")
+    check(len(report["projections"]) == 3, "tools: suggest-crop wrote no projections")
+    return {"suggest_crop_s": seconds, "gt_inside": inside}
+
+
+def rgb_pointcloud_tool(run_dir: Path, tree: Path, root: Path, cfg, hg, counts: dict) -> dict:
+    """``export --mode pointcloud --data <capture>`` on a capture run,
+    subsampled to POINTCLOUD_POINTS: a non-empty finite cloud with colours
+    in [0, 1]; K1 once a render chunk of each camera."""
+    from fruitnerf_tpu_torch import native
+    from fruitnerf_tpu_torch.export import ply, rgb_pointcloud
+    from fruitnerf_tpu_torch.scripts import export as export_cli
+
+    cleaning = []  # seconds of the native outlier counts
+    real_counts = native.neighbor_counts
+
+    def timed_counts(*a):
+        t0 = time.perf_counter()
+        try:
+            return real_counts(*a)
+        finally:
+            cleaning.append(time.perf_counter() - t0)
+
+    native.neighbor_counts = timed_counts
+    try:
+        with counted_calls(rgb_pointcloud, "export_rgb_pointcloud", hg, counts):
+            t0 = time.perf_counter()
+            out = run_cli(export_cli, ["--load-dir", run_dir, "--output-dir", root / "rgb",
+                                       "--mode", "pointcloud", "--data", tree,
+                                       "--pointcloud-cameras", POINTCLOUD_CAMERAS,
+                                       "--num-points", POINTCLOUD_POINTS])
+            seconds = time.perf_counter() - t0
+    finally:
+        native.neighbor_counts = real_counts
+    pts, cols = out["points"], out["colors"]
+    size = ORCHARD["image_size"]
+    chunks = POINTCLOUD_CAMERAS * math.ceil(size * size / cfg.eval_rays_per_chunk)
+    got = counts["export_rgb_pointcloud"][-1]
+    written = ply.read_ply(out["path"])["points"]
+    print(f"tools: export --mode pointcloud of {POINTCLOUD_CAMERAS} cameras at {size}^2 to "
+          f"{POINTCLOUD_POINTS} points in {seconds:.3f} s (native outlier counts "
+          f"{sum(cleaning):.3f} s): {len(pts)} points, extent {pts.min(0).round(3).tolist()}.."
+          f"{pts.max(0).round(3).tolist()}; launches {_nonzero(got)} for {chunks} chunks")
+    check(0 < len(pts) <= POINTCLOUD_POINTS and np.isfinite(pts).all(),
+          "tools: the RGB cloud is empty, too large or not finite")
+    check(cols.min() >= 0.0 and cols.max() <= 1.0, "tools: an RGB colour lies outside [0, 1]")
+    check(len(written) == len(pts), "tools: point_cloud.ply holds another cloud")
+    check(got["cell_encode_fwd"] == chunks and sum(got.values()) == chunks,
+          f"tools: the RGB cloud launched {got} for {chunks} chunks")
+    return {"pointcloud_s": seconds, "cleaning_s": sum(cleaning), "pointcloud_points": len(pts)}
+
+
+def viewer_tool(big_dir: Path, huge_dir: Path, dev, hg, counts: dict) -> dict:
+    """The viewer on the big run through HTTP on this machine (/, /info,
+    /render of each panel full, preview and with a crop box, /suggest),
+    and one frame of the huge parity run (K3). Frames at VIEW_SIZE^2 launch
+    K1 (or K3 in each of huge's three fields) once a render chunk."""
+    from PIL import Image
+
+    from fruitnerf_tpu_torch.scripts import suggest_crop
+    from fruitnerf_tpu_torch.viewer import server
+
+    session = server.ViewerSession.from_run_dir(big_dir, dev)
+    chunks = math.ceil(VIEW_SIZE**2 / session.config.eval_rays_per_chunk)
+    httpd = server.serve(session, port=0)
+    try:
+        host, port = httpd.server_address
+        url = f"http://{host}:{port}"
+        page, _ = _get(url + "/")
+        info = json.loads(_get(url + "/info")[0])
+        check(b"/render?" in page and info["preset"] == "fruit_nerf_big",
+              f"tools: viewer page or /info {info}")
+        seconds = {}
+        with counted_calls(server.ViewerSession, "render_frame", hg, counts):
+            for panel in server._PANELS:
+                for tag, q in (("full", ""), ("preview", "&preview=1"),
+                               ("crop", "&crop=-0.3,-0.3,-0.5,0.3,0.3,0.1")):
+                    body, s = _get(f"{url}/render?theta=0.8&phi=0.5&radius=1.2&size="
+                                   f"{VIEW_SIZE}&panel={panel}{q}")
+                    img = np.asarray(Image.open(io.BytesIO(body)))
+                    check(img.shape == (VIEW_SIZE, VIEW_SIZE, 3), f"tools: frame {img.shape}")
+                    seconds.setdefault(tag, []).append(s)
+        with counted_calls(suggest_crop, "occupancy_grids", hg, counts):
+            aabb = json.loads(_get(url + "/suggest")[0])["aabb"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    frames = counts["render_frame"]
+    check(all(c["cell_encode_fwd"] == chunks and sum(c.values()) == chunks for c in frames),
+          f"tools: viewer frames launched {frames[0]} for {chunks} chunks")
+    check(aabb is not None, "tools: the viewer's /suggest found nothing")
+    huge = server.ViewerSession.from_run_dir(huge_dir, dev)
+    with counted_calls(server.ViewerSession, "render_frame", hg, counts):
+        t0 = time.perf_counter()
+        huge.render_frame(0.8, 0.5, 1.2, VIEW_SIZE)
+        huge_s = time.perf_counter() - t0
+    got = counts["render_frame"][-1]
+    want = chunks * (1 + len(huge.config.model.proposal_nets))
+    means = {k: float(np.mean(v)) for k, v in seconds.items()}
+    print(f"tools: viewer on the big run at {VIEW_SIZE}^2, seconds a frame over the "
+          f"{len(server._PANELS)} panels (with the HTTP round trip): " +
+          ", ".join(f"{k} {v:.4f}" for k, v in means.items()) +
+          f"; /suggest {aabb}; huge parity frame {huge_s:.4f} s, launches {_nonzero(got)}")
+    check(got["corner_encode_fwd"] == want and sum(got.values()) == want,
+          f"tools: the huge frame launched {got}, predicted {want} K3")
+    return {"viewer_s_a_frame": means, "viewer_huge_s": huge_s}
+
+
+def fruit_shells(manifest: dict, scene: dict, rng) -> tuple[np.ndarray, float]:
+    """SHELL_POINTS points on each GT fruit's surface (2% radial jitter), in
+    the export's output frame: -> (points, fruit radius there)."""
+    gt, r_world = gt_in_capture(manifest, scene)
+    r_out = r_world / APPLIED_SCALE
+    d = rng.standard_normal((len(gt), SHELL_POINTS, 3))
+    d *= r_out * (1 + 0.02 * rng.standard_normal((len(gt), SHELL_POINTS, 1))) \
+        / np.linalg.norm(d, axis=-1, keepdims=True)
+    return (gt[:, None] / APPLIED_SCALE + d).reshape(-1, 3).astype(np.float32), r_out
+
+
+def dbscan_tool(cloud: np.ndarray, label: str, eps: float, min_samples: int, radius: float,
+                nb_points: int, dev) -> dict:
+    """``dbscan_device`` and ``radius_neighbor_mask_device`` on the card
+    against the native engine on one cloud: the same noise set, core labels
+    and mask; seconds of each (host bucketing included; the device's
+    second call)."""
+    from fruitnerf_tpu_torch import native
+    from fruitnerf_tpu_torch.counting.dbscan_device import (
+        _bucket,
+        dbscan_device,
+        radius_neighbor_mask_device,
+    )
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    dbscan_device(cloud[:1000], eps, min_samples, dev)  # warm the ops
+    labels, dev_s = timed(dbscan_device, cloud, eps, min_samples, dev)
+    mask, mask_s = timed(radius_neighbor_mask_device, cloud, radius, nb_points, dev)
+    ref, nat_s = timed(native.dbscan, cloud, eps, min_samples)
+    ref_mask, nat_mask_s = timed(native.radius_outlier_mask, cloud, radius, nb_points)
+    check(labels is not None and ref is not None and mask is not None and ref_mask is not None,
+          f"tools: {label}: an engine gave no answer")
+    same_noise = bool(((labels == -1) == (ref == -1)).all())
+    core = native.radius_outlier_mask(cloud, eps, min_samples)  # >= min_samples within eps
+    same_core = bool((labels[core] == ref[core]).all())
+    same_mask = bool((mask == ref_mask).all())
+    b = _bucket(cloud, eps)
+    print(f"tools: dbscan on {label} ({len(cloud)} points, eps {eps:.5g}, min_samples "
+          f"{min_samples}; {b['num_cells']} cells of up to {b['k']}): device {dev_s:.4f} s, "
+          f"native {nat_s:.4f} s, {len(set(ref[ref >= 0]))} clusters, {int((ref == -1).sum())} "
+          f"noise; radius mask (r {radius:.5g}, {nb_points}): device {mask_s:.4f} s, native "
+          f"{nat_mask_s:.4f} s, {int(ref_mask.sum())} kept; same noise {same_noise}, same core "
+          f"labels {same_core}, same mask {same_mask}")
+    check(same_noise and same_core and same_mask, f"tools: {label}: the device engine differs "
+          "from the native engine")
+    return {"points": len(cloud), "device_s": dev_s, "native_s": nat_s, "mask_device_s": mask_s,
+            "mask_native_s": nat_mask_s}
+
+
+def speed_probe_tool(root: Path, hg, counts: dict) -> dict:
+    """``speed-probe --only SPEED_CANDIDATES`` at small repeat counts."""
+    from fruitnerf_tpu_torch.scripts import speed_probe, step_bench
+
+    with counted_calls(step_bench, "step_ms", hg, counts):
+        rows = run_cli(speed_probe, ["--only", SPEED_CANDIDATES, "--chunk", 5, "--reps", 2,
+                                     "--repeats", 3, "--output", root / "speed_probe.json"])
+    check([r["name"] for r in rows] == SPEED_CANDIDATES.split(","), "tools: speed-probe rows")
+    for r in rows:
+        print(f"tools: speed-probe {r['name']}: {r['ms_per_step']:.4f} ms a step (min "
+              f"{r['ms_per_step_min']:.4f}), {r['rays_per_sec']:.1f} rays/s, "
+              f"{r['vs_baseline']:.4f} x the 136,533 rays/s anchor; {r['card']}")
+        check(math.isfinite(r["rays_per_sec"]) and r["rays_per_sec"] > 0, "tools: speed-probe")
+    return {r["name"]: r["rays_per_sec"] for r in rows}
+
+
+def profiling_tool(root: Path, dev, hg, counts: dict) -> dict:
+    """TRACE_STEPS grid train steps on a small scene under ``device_trace``,
+    each timed by ``StepTimer`` (synchronised on the parameters it updates):
+    a Chrome trace with the cell kernels in it, and the section's mean."""
+    from fruitnerf_tpu_torch.configs import fruit_nerf
+    from fruitnerf_tpu_torch.data.builder import dataset_from_scene
+    from fruitnerf_tpu_torch.data.synthetic import SyntheticSceneConfig, render_scene
+    from fruitnerf_tpu_torch.engine.trainer import init_train_state, train_step
+    from fruitnerf_tpu_torch.utils.profiling import StepTimer, device_trace
+
+    data = dataset_from_scene(render_scene(SyntheticSceneConfig(image_size=64, num_cameras=8),
+                                           device=dev), dev)
+    cfg = fruit_nerf(8)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = init_train_state(cfg, 8, dev, generator=gen)
+    train_step(state, data, cfg, gen)  # warm
+    timer = StepTimer()
+    torch.cuda.synchronize()
+    hg.reset_launch_counts()
+    with device_trace(root / "trace") as prof:
+        for _ in range(TRACE_STEPS):
+            with timer.section("train_step", block_on=state.params):
+                train_step(state, data, cfg, gen)
+    counts.setdefault("trace", []).append(dict(hg.LAUNCHES))
+    trace = root / "trace" / "trace.json"
+    names = {e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"]}
+    kernels = sorted(n for n in names if "cell_encode" in n)
+    device_ms = sum(getattr(r, "self_device_time_total", 0) for r in prof.key_averages()) / 1e3
+    report = timer.report()
+    print(f"tools: StepTimer over {TRACE_STEPS} grid steps: {report}; device_trace wrote "
+          f"{trace.stat().st_size} bytes, {len(names)} event names, cell kernels {kernels}, "
+          f"{device_ms:.3f} device ms self time; launches {_nonzero(counts['trace'][-1])}")
+    check(timer.counts["train_step"] == TRACE_STEPS and report["train_step"] > 0,
+          "tools: StepTimer")
+    check(len(kernels) >= 2, "tools: the trace holds no cell kernel")
+    check(counts["trace"][-1]["cell_encode_fwd"] == TRACE_STEPS, "tools: traced launches")
+    return {"step_ms": report["train_step"], "trace_bytes": trace.stat().st_size}
+
+
+def tools_phase(scene: dict, tree: Path, root: Path, dev, hg, seed: int) -> dict:
+    """The tools on the presets phase's runs (``root/big``, ``root/huge``)
+    and capture (``tree``): suggest-crop, export --mode pointcloud, the
+    viewer, the device DBSCAN engine on the big run's fruit cloud and on
+    120 synthetic fruit shells, speed-probe, StepTimer and device_trace.
+    -> {"launches": summed over the phase, and each tool's numbers}."""
+    from fruitnerf_tpu_torch.configs import fruit_nerf_big
+    from fruitnerf_tpu_torch.export.ply import read_ply
+
+    t_start = time.perf_counter()
+    counts: dict = {}
+    big_dir = root / "big"
+    manifest = json.loads((big_dir / "manifest.json").read_text())
+    out = {"suggest_crop": suggest_crop_tool(big_dir, root, manifest, scene, hg, counts),
+           "pointcloud": rgb_pointcloud_tool(big_dir, tree, root, fruit_nerf_big(1), hg, counts),
+           "viewer": viewer_tool(big_dir, root / "huge", dev, hg, counts)}
+    fruit = read_ply(root / "big_export" / "semantic_colormap.ply")["points"]
+    _, r_world = gt_in_capture(manifest, scene)
+    r_out = r_world / APPLIED_SCALE
+    shells, _ = fruit_shells(manifest, scene, np.random.default_rng(seed))
+    out["dbscan"] = {
+        "fruit_cloud": dbscan_tool(fruit, "the big run's fruit cloud", 0.6 * r_out, 4,
+                                   0.45 * r_out, 3, dev),
+        "shells": dbscan_tool(shells, "120 fruit shells", 0.3 * r_out, 10, 0.3 * r_out, 10,
+                              dev)}
+    out["speed_probe"] = speed_probe_tool(root, hg, counts)
+    out["profiling"] = profiling_tool(root, dev, hg, counts)
+    out["launches"] = summed(counts)
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"tools: every tool passed in {out['seconds']:.3f} s; launches {out['launches']}")
+    return out
 
 def _other_kernels(lib, hg, corner: bool):
     """Wrappers of another build's cell_encode or corner_encode pair,
@@ -2040,10 +2370,12 @@ def main(argv=None) -> int:
     for k in kernels:  # K5/K6's launches were counted on their own path, in the kernel phase
         if k["name"].startswith("corner_encode"):
             k["launches"] = corner_counts[k["name"]] + parity_counts[k["name"]] \
-                + smoke_counts[k["name"]] + presets["huge"][k["name"]]
+                + smoke_counts[k["name"]] + presets["huge"][k["name"]] \
+                + presets["tools"]["launches"][k["name"]]
         elif k["name"].startswith("cell_encode"):
             k["launches"] = cell_counts[k["name"]] + orchard_counts[k["name"]] \
-                + disk_counts[k["name"]] + presets["big"][k["name"]]
+                + disk_counts[k["name"]] + presets["big"][k["name"]] \
+                + presets["tools"]["launches"][k["name"]]
     # K1/K2 and K3/K4 at their step's positions; K3/K4 at the parity and
     # huge layouts, K1/K2 at the big layout
     for pair, key, step in ((kernels[0:2], "step", step12), (kernels[2:4], "step", step34),

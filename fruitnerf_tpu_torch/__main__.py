@@ -7,9 +7,14 @@ Commands, each the twin of the JAX package's command of the same name:
                 built-in synthetic scene
   eval          full-eval-set metrics of a trained run
   render        PNG panels of a trained run's cameras
-  export        semantic point clouds of a trained run
+  export        semantic point clouds of a trained run, or (--mode
+                pointcloud) its depth-backprojected RGB cloud
   count         count the fruit of an exported cloud
   orchard-e2e   synthetic orchard: train -> export -> count -> GT metrics
+  suggest-crop  crop-box discovery: probe the field, print the export
+                --bounding-box-min/max flags
+  viewer        interactive orbit viewer and crop-box picker over HTTP
+  speed-probe   train-step rates of the grid recipe candidates on the card
 """
 from __future__ import annotations
 
@@ -22,7 +27,10 @@ from .scripts import export as export_cmd
 from .scripts import orchard_e2e as orchard_cmd
 from .scripts import process_data as process_cmd
 from .scripts import render as render_cmd
+from .scripts import speed_probe as speed_cmd
+from .scripts import suggest_crop as crop_cmd
 from .scripts import train as train_cmd
+from .viewer import server as viewer_cmd
 
 COMMANDS = {
     "process-data": process_cmd,
@@ -32,6 +40,9 @@ COMMANDS = {
     "export": export_cmd,
     "count": count_cmd,
     "orchard-e2e": orchard_cmd,
+    "suggest-crop": crop_cmd,
+    "viewer": viewer_cmd,
+    "speed-probe": speed_cmd,
 }
 
 

@@ -111,8 +111,10 @@ def load_obj_fruit_centers(path) -> np.ndarray:
 
 
 class FruitClustering:
-    def __init__(self, profile: CountingProfile, template_points: np.ndarray | None = None):
+    def __init__(self, profile: CountingProfile, template_points: np.ndarray | None = None,
+                 device="cuda"):
         self.profile = profile
+        self.device = device  # where the device engine runs, if the cascade reaches it
         self.template = (
             template_points
             if template_points is not None
@@ -125,10 +127,10 @@ class FruitClustering:
     def cluster(self, points: np.ndarray):
         p = self.profile
         cleaned = radius_outlier_removal(
-            points, p.remove_outliers_nb_points, p.remove_outliers_radius
+            points, p.remove_outliers_nb_points, p.remove_outliers_radius, self.device
         )
         down = voxel_downsample(cleaned, p.down_sample)
-        labels = dbscan(down, p.eps, p.min_samples)
+        labels = dbscan(down, p.eps, p.min_samples, self.device)
         return down, labels
 
     @staticmethod

@@ -11,18 +11,27 @@ import numpy as np
 from scipy.spatial import cKDTree
 
 
-def dbscan(points: np.ndarray, eps: float, min_samples: int) -> np.ndarray:
+def dbscan(points: np.ndarray, eps: float, min_samples: int, device="cuda") -> np.ndarray:
     """[N,3] -> labels [N] int32 (-1 = noise).
 
     Dispatch: the native C++ grid engine (fruitnerf_tpu_torch/native) handles
-    any size on the host; without it, the numpy grid engine
-    (counting/gridhash.py) does. Both are exact; the BFS version remains the
+    any size on the host; without it, export-scale clouds (>= 50k points) go
+    to the device engine (counting/dbscan_device.py, the quadratic neighbor
+    math as batched tensor math on ``device``, the card unless the caller
+    names the CPU), and smaller ones to the numpy grid engine
+    (counting/gridhash.py). All are exact; the BFS version remains the
     reference implementation and the fallback for degenerate spreads."""
     from .. import native
 
     labels = native.dbscan(np.asarray(points), eps, min_samples)
     if labels is not None:
         return labels
+    if len(points) >= 50_000:
+        from .dbscan_device import dbscan_device
+
+        labels = dbscan_device(points, eps, min_samples, device)
+        if labels is not None:
+            return labels
     from .gridhash import dbscan_grid
 
     return dbscan_grid(points, eps, min_samples)

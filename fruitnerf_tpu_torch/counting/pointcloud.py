@@ -36,10 +36,12 @@ def voxel_downsample(points: np.ndarray, voxel_size: float) -> np.ndarray:
 
 
 def radius_outlier_removal(
-    points: np.ndarray, nb_points: int, radius: float
+    points: np.ndarray, nb_points: int, radius: float, device="cuda"
 ) -> np.ndarray:
     """Keep points with >= nb_points neighbors within radius (incl. self),
-    matching open3d remove_radius_outlier semantics."""
+    matching open3d remove_radius_outlier semantics. The native engine,
+    then (>= 50k points) the device engine on ``device``, then the numpy
+    grid engine, as ``dbscan`` dispatches."""
     if len(points) == 0:
         return points
     from .. import native
@@ -47,6 +49,12 @@ def radius_outlier_removal(
     mask = native.radius_outlier_mask(np.asarray(points), radius, nb_points)
     if mask is not None:
         return points[mask]
+    if len(points) >= 50_000:
+        from .dbscan_device import radius_neighbor_mask_device
+
+        mask = radius_neighbor_mask_device(points, radius, nb_points, device)
+        if mask is not None:
+            return points[mask]
     from .gridhash import neighbor_counts
 
     counts = neighbor_counts(points, radius)

@@ -20,16 +20,18 @@ def run_profiles(
     profiles: dict[str, CountingProfile],
     clouds: dict[str, object] | None = None,
     output_path=None,
+    device="cuda",
 ) -> dict:
     """Count each profile's cloud. ``clouds`` overrides profile.path per name
-    (array or .ply path). Returns + optionally writes the results dict."""
+    (array or .ply path); ``device`` is where the cascade's device engine
+    runs, if it is reached. Returns + optionally writes the results dict."""
     results = {}
     for name, profile in profiles.items():
         src = (clouds or {}).get(name, profile.path)
         if src is None:
             results[name] = {"skipped": "no point cloud provided"}
             continue
-        clustering = FruitClustering(profile)
+        clustering = FruitClustering(profile, device=device)
         res = clustering.count(src)
         results[name] = {
             "count": res.count,
@@ -57,6 +59,7 @@ def run_sweep(
     eps_grid=(0.01, 0.02, 0.03),
     template_size_grid=(0.7, 1.0, 1.3),
     output_path=None,
+    device="cuda",
 ) -> list[dict]:
     """Grid-search counting hyperparameters (run_clustering_sweep.py:141-201)."""
     rows = []
@@ -69,7 +72,7 @@ def run_sweep(
                     eps=eps,
                     template_size=ts,
                 )
-                res = FruitClustering(p).count(cloud)
+                res = FruitClustering(p, device=device).count(cloud)
                 row = {
                     "nb_points": nb,
                     "eps": eps,

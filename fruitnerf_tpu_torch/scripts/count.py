@@ -35,6 +35,10 @@ def add_args(p: argparse.ArgumentParser):
     p.add_argument("--output", default=None, help="results JSON path")
     p.add_argument("--sweep", action="store_true",
                    help="grid-search nb_points x eps x template_size")
+    p.add_argument("--device", default="cuda",
+                   help="where the cascade's device engine runs, if an export-scale "
+                        "cloud reaches it without the native library (default: the "
+                        "card; 'cpu' asks for the CPU explicitly)")
 
 
 def native_library() -> Path | None:
@@ -81,9 +85,11 @@ def main(args):
     profile = _profile(args)
     cloud = _with_semantic_fallback(args.cloud)
     if args.sweep:
-        results = [dict(row, cloud_used=cloud) for row in run_sweep(profile, cloud)]
+        results = [dict(row, cloud_used=cloud)
+                   for row in run_sweep(profile, cloud, device=args.device)]
     else:
-        results = run_profiles({profile.name: profile}, clouds={profile.name: cloud})
+        results = run_profiles({profile.name: profile}, clouds={profile.name: cloud},
+                               device=args.device)
         results[profile.name]["cloud_used"] = cloud
     if args.output is not None:
         Path(args.output).parent.mkdir(parents=True, exist_ok=True)

@@ -1,14 +1,19 @@
-"""Export CLI: the semantic point clouds of a trained run. Twin of
-``fruitnerf_tpu/scripts/export.py`` (``--mode semantic-pointcloud``).
+"""Export CLI: the semantic point clouds of a trained run, or its RGB
+point cloud. Twin of ``fruitnerf_tpu/scripts/export.py``.
 
     python -m fruitnerf_tpu_torch export --load-dir runs/my_run --output-dir out/ \\
         --num-points-per-side 1000
+    python -m fruitnerf_tpu_torch export --load-dir runs/my_run --output-dir out/ \\
+        --mode pointcloud --data <capture dir>|synthetic
 
 The run's manifest rebuilds the training config (preset, variant, config
 overrides) and its field's encoding and layout, which must match; the
-latest checkpoint supplies the parameters. Writes ``semantic.ply``, ``semantic_colormap.ply``
-and ``density.ply`` into ``--output-dir``. It runs on the card unless
-``--device cpu`` asks for the CPU.
+latest checkpoint supplies the parameters. ``--mode semantic-pointcloud``
+writes ``semantic.ply``, ``semantic_colormap.ply`` and ``density.ply``;
+``--mode pointcloud`` renders cameras, back-projects their depth and
+writes ``point_cloud.ply`` (``export/rgb_pointcloud.py``), parsing a
+capture at the run's split and downscale factor. It runs on the card
+unless ``--device cpu`` asks for the CPU.
 """
 from __future__ import annotations
 
@@ -59,17 +64,14 @@ def main(args):
     from ..export.volume_sampler import ExportConfig, sample_volume
     from ..utils import resolve_device
 
-    if args.mode == "pointcloud":
-        raise NotImplementedError(
-            "export --mode pointcloud (the depth-backprojected RGB cloud) is not ported "
-            "(ROADMAP Queue 1 item 5)"
-        )
     if args.mesh:
         raise NotImplementedError(
             "export --mesh (multi-device export) is not ported (ROADMAP Queue 1 item 7)"
         )
     dev = resolve_device(args.device)
     manifest, config, state = load_run(args.load_dir, dev)
+    if args.mode == "pointcloud":
+        return _rgb_pointcloud(args, manifest, config, state, dev)
 
     export_config = ExportConfig(
         bounding_box_min=tuple(args.bounding_box_min),
@@ -87,3 +89,36 @@ def main(args):
     for name, d in out.items():
         print(f"{name}: {d['points'].shape[0]} points -> {d['path']}")
     return out
+
+
+def _rgb_pointcloud(args, manifest, config, state, dev):
+    """``--mode pointcloud``: the depth-backprojected RGB cloud of the first
+    ``--pointcloud-cameras`` cameras, written as ``point_cloud.ply``. A
+    capture is parsed at the run's split and downscale factor (the JAX twin
+    parses at the automatic factor, another resolution for a run trained at
+    a forced one)."""
+    from pathlib import Path
+
+    from ..export.ply import write_ply
+    from ..export.rgb_pointcloud import export_rgb_pointcloud
+
+    if args.data == "synthetic":
+        from ..data.builder import cameras_from_scene
+        from ..data.synthetic import SyntheticSceneConfig, render_scene
+
+        cameras = cameras_from_scene(render_scene(SyntheticSceneConfig(
+            num_cameras=args.pointcloud_cameras, image_size=256), device=dev), dev)
+    else:
+        from ..data.builder import cameras_from_parsed
+        from ..engine.runs import parse_capture
+
+        cameras = cameras_from_parsed(parse_capture(args.data, manifest), dev)
+    indices = list(range(min(args.pointcloud_cameras, cameras.num_cameras)))
+    pts, cols = export_rgb_pointcloud(
+        state.params, config, cameras, indices,
+        num_points=args.num_points, acc_threshold=args.acc_threshold,
+        dataparser_scale=manifest["dataparser_scale"],
+    )
+    path = write_ply(Path(args.output_dir) / "point_cloud.ply", pts, cols)
+    print(f"point_cloud: {len(pts)} points -> {path}")
+    return {"points": pts, "colors": cols, "path": path}

@@ -295,7 +295,7 @@ def main(args):
         if len(pts) == 0:
             counting[cloud_name] = {"count": 0, "error": "empty cloud"}
             continue
-        result = FruitClustering(profile).count(pts)
+        result = FruitClustering(profile, device=dev).count(pts)
         # the match tolerance scales with the fruit (the reference's 0.15
         # for ~0.03-radius apples is about 5 radii)
         gt = evaluate_against_gt(

@@ -120,17 +120,15 @@ def test_metric_writer_lines_equal_but_the_time(tmp_path, capsys):
                              "--camera-elevation", "-0.2", "0.8", "--no-jitter"]),
 ])
 def test_cli_parsers_accept_the_jax_packages_arguments(port, jax_mod, argv):
-    """The same arguments parse to the same values; train, export and
-    orchard-e2e also take ``--device``, default ``cuda``."""
+    """The same arguments parse to the same values; each command also takes
+    ``--device``, default ``cuda`` (``count``'s is where the cascade's
+    device engine runs)."""
     def parse(mod, args):
         p = argparse.ArgumentParser()
         mod.add_args(p)
         return vars(p.parse_args(args))
 
     got, want = parse(port, argv), parse(jax_mod, argv)
-    if port is count:
-        assert got == want
-        return
     assert got.pop("device") == "cuda"
     assert got == want
     assert parse(port, [*argv, "--device", "cpu"])["device"] == "cpu"

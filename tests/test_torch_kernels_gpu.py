@@ -640,3 +640,79 @@ def test_lpips_on_the_card_equals_the_cpu(dev, tmp_path):
     on_card = lpips_fn(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), w)
     assert on_card.device.type == "cuda" and torch.backends.cudnn.allow_tf32 == flag
     assert abs(float(on_card) - float(lpips_fn(a, b, w))) <= 1e-5
+
+
+def _blobs(n_blobs: int, per_blob: int, noise: int, seed: int) -> np.ndarray:
+    rng = np.random.RandomState(seed)
+    centres = rng.rand(n_blobs, 3) * 4.0
+    blobs = (centres[:, None] + rng.randn(n_blobs, per_blob, 3) * 0.05).reshape(-1, 3)
+    return np.concatenate([blobs, rng.rand(noise, 3) * 4.0]).astype(np.float32)
+
+
+@pytest.mark.parametrize("cloud", ["random", "blobs"])
+def test_dbscan_device_on_the_card_is_exact(dev, cloud):
+    """The device DBSCAN engine on the card: the same noise set and core
+    labels as the BFS reference and the native engine, the neighbor counts
+    of a cKDTree and the native engine's outlier mask (the engine is exact:
+    float32 differences summed x, y, z, no cancelling form)."""
+    from scipy.spatial import cKDTree
+
+    from fruitnerf_tpu_torch import native
+    from fruitnerf_tpu_torch.counting.dbscan import dbscan_bfs
+    from fruitnerf_tpu_torch.counting.dbscan_device import (
+        dbscan_device,
+        neighbor_counts_device,
+        radius_neighbor_mask_device,
+    )
+
+    if cloud == "random":
+        rng = np.random.RandomState(3)
+        pts = (rng.randn(2400, 3) * 0.4 + rng.randn(3)).astype(np.float32)
+        eps, ms = 0.12, 8
+    else:
+        pts, eps, ms = _blobs(40, 1500, 4000, 11), 0.02, 10
+    labels = dbscan_device(pts, eps, ms, device=dev)
+    counts_ref = cKDTree(pts).query_ball_point(pts, eps, return_length=True, workers=-1)
+    core = counts_ref >= ms
+    np.testing.assert_array_equal(neighbor_counts_device(pts, eps, device=dev), counts_ref)
+    np.testing.assert_array_equal(radius_neighbor_mask_device(pts, eps, ms, device=dev), core)
+    refs = [native.dbscan(pts, eps, ms)]
+    if cloud == "random":
+        refs.append(dbscan_bfs(pts, eps, ms))
+    for ref in refs:
+        assert ref is not None
+        assert ((labels == -1) == (ref == -1)).all()
+        assert (labels[core] == ref[core]).all()
+    mask = native.radius_outlier_mask(pts, eps, ms)
+    assert mask is not None and (mask == core).all()
+
+
+# u8 levels a viewer pixel may differ between the card and the CPU: the
+# kernels against the plain versions, matmuls of another library, rounded to
+# 8 bits (the depth panel also through its percentile stretch)
+VIEWER_U8_LEVELS = 2
+
+
+@pytest.mark.parametrize("panel", ["rgb", "semantics", "depth", "accumulation"])
+def test_viewer_frame_on_the_card_equals_the_cpu(dev, panel):
+    """One set of smoke-preset parameters (hash tables drawn in +-0.1, so
+    the frame is not flat) rendered by the viewer on the card (K3) and on
+    the CPU (the plain version)."""
+    from fruitnerf_tpu_torch.bridge import tree_map
+    from fruitnerf_tpu_torch.configs import fruit_nerf_smoke
+    from fruitnerf_tpu_torch.engine.trainer import init_train_state
+    from fruitnerf_tpu_torch.viewer import ViewerSession
+
+    config = fruit_nerf_smoke(num_images=4)
+    params = init_train_state(config, 4, "cpu").params
+    g = torch.Generator().manual_seed(0)
+    for field in (params["model"]["field"], *params["model"]["proposal_networks"]):
+        field["hash_table"] = (torch.rand(field["hash_table"].shape, generator=g) - 0.5) * 0.2
+    crop = np.array([[-0.3, -0.2, -0.4], [0.4, 0.3, 0.2]])
+    cpu = ViewerSession(params, config).render_frame(0.7, 0.45, 2.2, 64, panel, crop)
+    before = hg.LAUNCHES["corner_encode_fwd"]
+    card = ViewerSession(tree_map(params, lambda t: t.to(dev)), config).render_frame(
+        0.7, 0.45, 2.2, 64, panel, crop)
+    assert hg.LAUNCHES["corner_encode_fwd"] > before
+    assert card.shape == cpu.shape == (64, 64, 3)
+    assert int(np.abs(card.astype(int) - cpu).max()) <= VIEWER_U8_LEVELS

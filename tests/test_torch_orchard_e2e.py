@@ -7,6 +7,7 @@ run directory reproduces the clouds; count records the cloud it fell back
 to; train writes a run that export reads; without ``--device`` a command
 asks for the card and fails where there is none. Also ``get_preset``, and
 that no module of the port imports the JAX package."""
+import argparse
 import json
 import os
 import subprocess
@@ -167,7 +168,7 @@ def test_train_cli_writes_a_run_that_export_reads(tmp_path):
 
 @pytest.mark.parametrize("argv, item", [
     (["eval", "--load-dir", "unused", "--data", "unused", "--mesh"], "item 7"),
-    (["export", "--load-dir", "unused", "--output-dir", "unused", "--mode", "pointcloud"], "item 5"),
+    (["viewer", "--load-dir", "unused", "--mesh"], "item 7"),
     (["export", "--load-dir", "unused", "--output-dir", "unused", "--mesh"], "item 7"),
     (["render", "--load-dir", "unused", "--data", "unused", "--output-dir", "unused", "--mesh"],
      "item 7"),
@@ -223,9 +224,37 @@ def test_without_device_a_command_asks_for_the_card(argv, tmp_path):
     assert not out.exists()
 
 
+@pytest.mark.parametrize("argv", [
+    ["suggest-crop", "--load-dir", "{run}", "--output-dir", "{out}"],
+    ["viewer", "--load-dir", "{run}", "--port", "0"],
+    ["speed-probe", "--output", "{out}/probe.json"],
+    ["count", "--cloud", "{out}/missing.ply"],
+])
+def test_the_tools_ask_for_the_card(argv, run, tmp_path):
+    """``suggest-crop``, ``viewer`` and ``speed-probe`` run on the card by
+    default and stop before they write anything where torch finds none;
+    ``count``'s ``--device`` defaults to the card too."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the command would run on it")
+    out = tmp_path / "out"
+    args = [a.format(run=run, out=out) for a in argv]
+    if argv[0] == "count":
+        parser = argparse.ArgumentParser()
+        count.add_args(parser)
+        assert parser.parse_args(args[1:]).device == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="finds no CUDA card"):
+        port_cli.main(args)
+    assert not out.exists()
+
+
 IMPORT_ALL = BLOCK + """
 import importlib, pkgutil, fruitnerf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(fruitnerf_tpu_torch.__path__, "fruitnerf_tpu_torch.")]
+tools = {"fruitnerf_tpu_torch." + m for m in (
+    "utils.profiling", "export.rgb_pointcloud", "scripts.suggest_crop", "scripts.speed_probe",
+    "viewer.server", "counting.dbscan_device")}
+assert tools <= set(names), sorted(tools - set(names))
 for name in names:
     importlib.import_module(name)
 loaded = sorted(m for m in sys.modules if m == "fruitnerf_tpu" or m.startswith("fruitnerf_tpu."))
