@@ -11,7 +11,9 @@ the disk capture workflow (train --data <dir>, eval, render, export,
 count) on the bench orchard written as a capture, take a raw capture
 through process-data into the big, huge and tpu training configurations,
 and run the tools (suggest-crop, the RGB point cloud, the viewer, the
-device DBSCAN engine, speed-probe, profiling) on those runs.
+device DBSCAN engine, speed-probe, profiling) on those runs; then the
+scale-out layer: K1-K4 with a scene axis, the multi-scene campaign, data
+parallelism over torch.distributed and --mesh.
 
     python3 chip_smoke.py [--steps 400] [--seed 0]
     python3 chip_smoke.py --ab-cell-source OTHER/cell_encode.cu [--steps 200]
@@ -134,21 +136,54 @@ Phases, each printing its lines:
            (16 levels of up to 16384 rows) and K3/K4 at the huge run's (the
            main field's fine samples at 16 x 2^21, each proposal field's
            8,388,608 samples at 7 x 2^18)
-Then one JSON line of the six kernels (K1/K2's launches summed over the cell
+  scale-out
+           K1/K2 at the fruit_nerf two-tier layout and K3/K4 at the parity
+           main field (16 x 2^19, F = 2), SCENES scenes of P_SLICE points in
+           one launch, and through the autograd Functions' vmap rules (as
+           the multi-scene step launches them): each scene of both bitwise
+           equal to its single launch and
+           within the plain version's tolerances; medians of the batched
+           launch, the SCENES single launches, the plain version, and one
+           embedding_bag over the S·P·L rows, beside the bound (S single
+           launches' bytes). Then ``multi-scene`` (GRID_CAMPAIGN, the JAX
+           docstring's command at full width, CAMPAIGN_ITERS steps): losses
+           finite and falling in every scene, a report row a scene, K1/K2
+           launched as one scene's steps would launch them, each for all
+           scenes, and each batched call of its last step held as above at
+           its own operands (captured from the vmap rules' launches);
+           SINGLE_SCENE_STEPS steps of its first scene alone, timed
+           beside it; ``multi-scene --variant parity`` (PARITY_CAMPAIGN,
+           CAMPAIGN_PARITY_ITERS steps) with K3/K4 likewise. Data parallel:
+           2 gloo ranks spawned on the one card against 1 rank, the
+           fruit_nerf grid preset at full width, DP_RAYS rays, DP_STEPS
+           steps of train_loop from each of DP_SEEDS (the first step's losses
+           within 2e-5; after it, parameters apart only where the one-rank
+           gradient is rounding noise; every step's losses within
+           DP_DRIFT_RTOL; the ranks bitwise equal; a planted fault, rank 1's
+           gradient dropped, fails these checks), and one step on an NCCL
+           group of one rank bitwise equal to the step without a mesh. --mesh: a MESH_ITERS
+           run through ``train``; render and export on [card, card] against
+           the unsharded results; eval, render, export and the viewer with
+           --mesh (a one-card mesh) equal to the commands without it
+Then one JSON line of the ten kernels (K1/K2's launches summed over the cell
 slice, the orchard phase's, the disk phase's, the big run's and the tools'
 counted calls, K3/K4's over the corner slice, the parity orchard, the smoke
 run, the huge run and the tools; the K1-K4 entries also carry their
 step-layout numbers, K1's its export-batch ones, K3/K4's the parity
 layouts' at random points and at the parity step's and the huge step's
-(huge_step), K1/K2's the big step's (big_step)), the card line,
+(huge_step), K1/K2's the big step's (big_step); then the four
+scene-batched entries ``*_scenes``, whose launches are the campaigns'
+steps', whose ``single_launches_ms`` is the SCENES single launches' and
+whose ``campaign_step`` holds the campaigns' last-step calls),
+the card line,
 and as the last line {"ok": true, "device": {...}}. It fails if jax or any
 module of the JAX package (fruitnerf_tpu) was imported. Any failure raises
 and exits non-zero; with no CUDA device it exits non-zero before printing
 any result.
 
 With --ab-cell-source it builds that other cell_encode.cu (for example the
-parent commit's, from git show; its backward may take the work buffer or,
-as before the fixed-point sums, a zeroed dTable) apart, runs only
+parent commit's, from git show; it must have this checkout's C interface,
+the scene axis included) apart, runs only
 the card, build and cell slice phases, and times the other K1/K2 ("old")
 against this checkout's ("new") and the plain version in turns (plain, old,
 new, new, old, plain) at random points, at the last step's positions and at
@@ -182,10 +217,12 @@ BWD_RTOL = 1e-4  # backward kernels: relative to each gradient's max; atomics re
 LOSS_RTOL = 1e-4  # small-input step, GPU against CPU, float32
 GRAD_RTOL = 1e-3  # its gradients, relative to each one's max magnitude
 P_SLICE = 4096 * 48 + 4096  # fine samples plus sparsity points of one step
-ORCHARD_ITERS = 1500  # the orchard phase's steps (2000 until the tools phase came; the
-# script must stay under 600 s on a slow host)
+ORCHARD_ITERS = 700  # the orchard phase's steps (2000 until the tools phase came, 1500
+# until the scale-out phase came, 1000 until its campaign-call and seed checks came;
+# the script must stay under 600 s on a slow host)
 EXPORT_N = 256  # its export's probe grid side: 2^24 probes in 4 batches
-PARITY_ITERS = 1000  # the parity variant's orchard steps
+PARITY_ITERS = 500  # the parity variant's orchard steps (1000 until the scale-out phase,
+# 700 until its campaign-call and seed checks; at least one eval, every 500 steps)
 LARGE_P = 2_000_000  # above this many points a kernel pair's medians are of 10 runs, not 30
 
 
@@ -318,7 +355,8 @@ def bound(nbytes: float, ops: float) -> dict:
     operations over the float32 rate, whichever is larger."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
 
 
 def lookups(hg, pos, layout, corner: bool):
@@ -2153,29 +2191,664 @@ def tools_phase(scene: dict, tree: Path, root: Path, dev, hg, seed: int) -> dict
     print(f"tools: every tool passed in {out['seconds']:.3f} s; launches {out['launches']}")
     return out
 
-def _other_kernels(lib, hg, corner: bool):
-    """Wrappers of another build's cell_encode or corner_encode pair,
-    uncounted: -> (fwd(table, pos, layout, f), bwd(table, pos, grad, layout,
-    f)); cell mode has f = 2. A backward without a ``*_work_bytes`` function
-    is the float-atomic one, which takes no work buffer and adds into a
-    zeroed dTable."""
-    import ctypes
 
+# ---------------------------------------------------------------------------
+# scale-out: the scene axis of K1-K4, the multi-scene campaign, data
+# parallelism over torch.distributed, --mesh
+# ---------------------------------------------------------------------------
+
+SCENES = 4  # the scene-batched kernels' and the campaign's scenes
+CAMPAIGN_ITERS = 400  # the grid campaign's steps (the JAX docstring's 4000, cut)
+CAMPAIGN_PARITY_ITERS = 60  # the parity campaign's steps: batched K3/K4 on their path
+SINGLE_SCENE_STEPS = 50  # steps of one scene alone, timed beside the campaign
+DP_STEPS = 5
+DP_RAYS = 4096  # 2048 a rank
+MESH_ITERS = 100  # the run that eval, render and export --mesh restore
+# the campaigns: the JAX docstring's command at full width (its steps cut
+# to CAMPAIGN_ITERS), and the parity variant on fewer cameras
+GRID_CAMPAIGN = ["--num-fruits", "8", "--num-cameras", "80", "--image-size", "128",
+                 "--preset", "fruit_nerf", "--variant", "grid",
+                 "--train-rays-per-batch", "2048", "--export-n", "192"]
+PARITY_CAMPAIGN = ["--num-fruits", "8", "--num-cameras", "40", "--image-size", "128",
+                   "--preset", "fruit_nerf", "--variant", "parity",
+                   "--train-rays-per-batch", "2048", "--export-n", "64"]
+RENDER_MESH_ATOL = 1e-5  # two shards on one card against one: cuBLAS may pick other kernels
+# 2 ranks against 1, each of DP_SEEDS. The first step's losses within the
+# JAX package's 1-vs-N bound (__graft_entry__.py:130, one step). After it
+# the runs part: the averaged gradient rounds apart from the one-rank one,
+# and Adam's first step moves an entry by lr * g / (|g| + 1e-15), a full lr
+# either way wherever g is rounding noise. So after the first step the
+# parameters more than DP_PARAM_ATOL apart must be entries whose one-rank
+# gradient is within DP_FLIP_REL_G of their leaf's largest, each at most
+# two full steps (2 * DP_MAX_LR) apart; the later losses are held to
+# DP_DRIFT_RTOL. A planted fault (the gradient of rank 0's shard alone,
+# rank 1's dropped) must break these checks. On an H100 the three seeds
+# read at most 1.22e-4 after the first step, the planted fault 2.89e-3 to
+# 7.79e-3 by the fifth; DP_DRIFT_RTOL sits near their geometric middle.
+DP_SEEDS = (0, 1, 2)
+DP_FIRST_RTOL = 2e-5
+DP_DRIFT_RTOL = 6e-4
+DP_PARAM_ATOL = 1e-6
+DP_FLIP_REL_G = 1e-3
+DP_MAX_LR = 1e-2  # the largest lr_init of the grid preset's groups
+
+
+def vmap_rule(hg, layout, feats: int, corner: bool):
+    """The kernel pair through its autograd Functions under ``torch.func``,
+    as the multi-scene step runs them: ``vmap`` of a ``vjp``, so the
+    forward Function's ``vmap`` rule launches K1/K3 and the backward
+    Function's launches K2/K4, once for every scene. -> f(tables [S, ...],
+    pos [S, P, 3], grad [S, P, C]) -> (out, dTable, dPos), [S, ...] each."""
+    def enc(t, p):
+        if corner:
+            return hg._CornerEncodeCUDA.apply(t, p, layout, feats)
+        return hg._CellEncodeCUDA.apply(t, p, layout)
+
+    def one(t, p, g):
+        out, pull = torch.func.vjp(enc, t, p)
+        return (out, *pull(g))
+
+    return torch.func.vmap(one)
+
+
+def hold_scenes(hg, label, fwd, bwd, plain, tables, pos, grad, layout, feats: int,
+                corner: bool) -> dict:
+    """A scene-batched kernel pair at S = tables.shape[0], launched directly
+    and through the autograd Functions' ``vmap`` rules (``vmap_rule``):
+    each scene of both bitwise equal to a launch of that scene alone
+    (forward, dTable, dPos), and within FWD_ATOL / BWD_RTOL of the plain
+    version; median times of the batched launch, of the S single launches,
+    of the plain version over the S scenes and of one ``embedding_bag``
+    over the S·P·L rows; the bound is S single launches' bytes (and
+    operations)."""
+    import torch.nn.functional as F
+
+    s_n, p = tables.shape[0], pos.shape[1]
+    direct = (fwd(tables, pos), *bwd(tables, pos, grad))
+    out, dt, dp = vmap_rule(hg, layout, feats, corner)(tables, pos, grad)
+    singles = [(fwd(tables[s], pos[s]), *bwd(tables[s], pos[s], grad[s])) for s in range(s_n)]
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(b[s], x) for s, one in enumerate(singles)
+                  for b, x in zip(direct, one))
+    rule_bitwise = all(torch.equal(b[s], x) for s, one in enumerate(singles)
+                       for b, x in zip((out, dt, dp), one))
+    leaves, graphs = [], []
+    fwd_err = dt_rel = dp_rel = 0.0
+    dt_err = dp_err = 0.0
+    for s in range(s_n):
+        t_ = tables[s].clone().requires_grad_(True)
+        p_ = pos[s].clone().requires_grad_(True)
+        ref = plain(t_, p_)
+        g_t, g_p = torch.autograd.grad(ref, (t_, p_), grad[s], retain_graph=True)
+        fwd_err = max(fwd_err, (out[s] - ref).abs().max().item())
+        dt_err = max(dt_err, (dt[s] - g_t).abs().max().item())
+        dp_err = max(dp_err, (dp[s] - g_p).abs().max().item())
+        dt_rel = max(dt_rel, (dt[s] - g_t).abs().max().item() / g_t.abs().max().item())
+        dp_rel = max(dp_rel, (dp[s] - g_p).abs().max().item() / g_p.abs().max().item())
+        leaves.append((t_, p_))
+        graphs.append(ref)
+    print(f"scale-out: {label}: scenes of one launch bitwise equal to single launches: "
+          f"{bitwise}, through the vmap rules: {rule_bitwise}; the vmap rules' forward max abs "
+          f"err {fwd_err:.3e} (tol {FWD_ATOL:g}); dTable {dt_rel:.3e}, dPos {dp_rel:.3e} of "
+          f"their max (tol {BWD_RTOL:g})")
+    check(bitwise, f"{label}: a scene of the batched launch differs from its single launch")
+    check(rule_bitwise, f"{label}: a scene through the vmap rules differs from its single launch")
+    check(fwd_err <= FWD_ATOL, f"{label} forward error {fwd_err} > {FWD_ATOL}")
+    check(dt_rel <= BWD_RTOL and dp_rel <= BWD_RTOL, f"{label} backward error over {BWD_RTOL}")
+
+    # the yardstick: one embedding_bag over every scene's rows of the
+    # stacked table, the S scenes' indices offset by their tables
+    rows = tables.shape[1] * (8 if not corner else 1)
+    idx, w = zip(*(bag_inputs(hg, pos[s], layout, corner) for s in range(s_n)))
+    idx = torch.cat([i + s * rows for s, i in enumerate(idx)])
+    w = torch.cat(w)
+    weight = tables.reshape(-1, feats if corner else 2)
+
+    def lib_fwd():
+        return F.embedding_bag(idx, weight, mode="sum", per_sample_weights=w)
+
+    leaf = weight.detach().clone().requires_grad_(True)
+    lib_graph = F.embedding_bag(idx, leaf, mode="sum", per_sample_weights=w)
+    lib_grad = grad.reshape(lib_graph.shape)
+    lf_err = (lib_fwd().view(out.shape) - torch.stack(graphs)).abs().max().item()
+    check(lf_err <= FWD_ATOL, f"{label}: the embedding_bag yardstick computes another function")
+    costs = [work(hg, pos[s], layout, feats, corner) for s in range(s_n)]
+    n = 10
+    times = {
+        "fwd_ms": median_ms(lambda: fwd(tables, pos), n),
+        "bwd_ms": median_ms(lambda: bwd(tables, pos, grad), n),
+        "fwd_singles_ms": median_ms(lambda: [fwd(tables[s], pos[s]) for s in range(s_n)], n),
+        "bwd_singles_ms": median_ms(
+            lambda: [bwd(tables[s], pos[s], grad[s]) for s in range(s_n)], n),
+        "fwd_plain_ms": median_ms(lambda: [plain(tables[s], pos[s]) for s in range(s_n)], n),
+        "bwd_plain_ms": median_ms(lambda: [torch.autograd.grad(
+            graphs[s], leaves[s], grad[s], retain_graph=True) for s in range(s_n)], n),
+        "fwd_library_ms": median_ms(lib_fwd, n),
+        "bwd_library_ms": median_ms(
+            lambda: torch.autograd.grad(lib_graph, leaf, lib_grad, retain_graph=True), n),
+    }
+    r = {"fwd_err": fwd_err, "bwd_err": max(dt_err, dp_err), "scenes": s_n,
+         "points_per_scene": p, **times}
+    for d in ("fwd", "bwd"):
+        b = bound(sum(c[d]["bytes"] for c in costs), sum(c[d]["ops"] for c in costs))
+        r[f"{d}_bound_ms"], r[f"{d}_bound_by"] = b["bound_ms"], b["bound_by"]
+    print(f"scale-out: {label}: forward {times['fwd_ms']:.4f} ms for {s_n} scenes, "
+          f"{s_n} single launches {times['fwd_singles_ms']:.4f}, plain "
+          f"{times['fwd_plain_ms']:.4f}, embedding_bag {times['fwd_library_ms']:.4f}, bound "
+          f"{r['fwd_bound_ms']:.4f}; backward {times['bwd_ms']:.4f}, singles "
+          f"{times['bwd_singles_ms']:.4f}, plain {times['bwd_plain_ms']:.4f}, embedding_bag "
+          f"{times['bwd_library_ms']:.4f}, bound {r['bwd_bound_ms']:.4f} (medians)")
+    return r
+
+
+def scene_kernels(hg, dev, seed: int) -> list[dict]:
+    """K1/K2 at the ``fruit_nerf`` two-tier layout and K3/K4 at the parity
+    variant's main field (16 x 2^19, F = 2), SCENES scenes of P_SLICE
+    uniform-random points each, batched in one launch -> their kernels-JSON
+    entries (launches filled in by the campaigns)."""
+    from fruitnerf_tpu_torch.configs import fruit_nerf
+
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    cell = fruit_nerf(1).model.field.grid.cell_layout()
+    main = fruit_nerf(1, variant="parity").model.field.hash
+    corner = hg.corner_layout(main.level_resolutions(), main.table_size)
+    f = main.features_per_level
+    out = []
+    for name, layout, width, feats, is_corner, fwd, bwd, plain, line, src, fns in (
+        ("cell_encode", cell, 16, 2, False,
+         lambda t, p: hg.cell_encode_fwd_cuda(t, p, cell),
+         lambda t, p, gr: hg.cell_encode_bwd_cuda(t, p, gr, cell, True),
+         lambda t, p: hg.cell_encode_torch(t, p, cell), (523, 581), CELL_SRC,
+         ("cell_encode_fwd_kernel", "cell_encode_bwd_kernel")),
+        ("corner_encode", corner, f, f, True,
+         lambda t, p: hg.corner_encode_fwd_cuda(t, p, corner, f),
+         lambda t, p, gr: hg.corner_encode_bwd_cuda(t, p, gr, corner, f, True),
+         lambda t, p: hg.grid_encode_corner_torch(t, p, corner, f), (163, 203), CORNER_SRC,
+         ("corner_encode_fwd_kernel", "corner_encode_bwd_kernel")),
+    ):
+        tables = torch.rand((SCENES, layout.total_rows, width), generator=g, device=dev) * 2 - 1
+        pos = torch.rand((SCENES, P_SLICE, 3), generator=g, device=dev) * 0.98 + 0.01
+        grad = torch.randn((SCENES, P_SLICE, feats * layout.num_levels), generator=g,
+                           device=dev)
+        label = (f"{name} x {SCENES} scenes ({layout.num_levels} levels, "
+                 f"{layout.total_rows} rows, P {P_SLICE} a scene)")
+        r = hold_scenes(hg, label, fwd, bwd, plain, tables, pos, grad, layout, feats, is_corner)
+        for e, d in zip(_entries(r, (f"{name}_fwd_scenes", f"{name}_bwd_scenes"), src, fns,
+                                 line), ("fwd", "bwd")):
+            e.update(scenes=SCENES, points_per_scene=P_SLICE,
+                     single_launches_ms=r[f"{d}_singles_ms"])
+            out.append(e)
+        del tables, pos, grad
+    return out
+
+
+@contextlib.contextmanager
+def scene_operands(hg, sink: list):
+    """Record a copy of the operands of every scene-batched K2/K4 launch in
+    the block, as the backward Functions' ``vmap`` rules hand them over:
+    (corner, tables [S, ...], positions [S, P, 3], grad [S, P, C], layout,
+    features). The same call site's K1/K3 took the same tables and
+    positions."""
+    real = {"cell": hg.cell_encode_bwd_cuda, "corner": hg.corner_encode_bwd_cuda}
+
+    def cell(table, positions, grad, layout, needs_pos_grad):
+        if positions.dim() == 3:
+            sink.append((False, table.clone(), positions.clone(), grad.clone(), layout, 2))
+        return real["cell"](table, positions, grad, layout, needs_pos_grad)
+
+    def corner(table, positions, grad, layout, features, needs_pos_grad):
+        if positions.dim() == 3:
+            sink.append((True, table.clone(), positions.clone(), grad.clone(), layout, features))
+        return real["corner"](table, positions, grad, layout, features, needs_pos_grad)
+
+    hg.cell_encode_bwd_cuda, hg.corner_encode_bwd_cuda = cell, corner
+    try:
+        yield
+    finally:
+        hg.cell_encode_bwd_cuda, hg.corner_encode_bwd_cuda = real["cell"], real["corner"]
+
+
+@contextlib.contextmanager
+def recorded_steps(module, hg, losses: list, counts: dict, iters: int, operands: list):
+    """Wrap ``module.multi_scene_step`` for the block: the launch counts are
+    set to 0 before its first call and read after each; every step's
+    per-scene total losses are kept (on the device); the last step's
+    scene-batched kernel operands go to ``operands`` (``scene_operands``)."""
+    real = module.multi_scene_step
+
+    def wrapped(*args, **kwargs):
+        if not losses:
+            torch.cuda.synchronize()
+            hg.reset_launch_counts()
+        last = len(losses) == iters - 1
+        with scene_operands(hg, operands) if last else contextlib.nullcontext():
+            m = real(*args, **kwargs)
+        losses.append(m["total_loss"].detach().clone())
+        counts["launches"], counts["scenes"] = dict(hg.LAUNCHES), dict(hg.SCENES)
+        return m
+
+    module.multi_scene_step = wrapped
+    try:
+        yield
+    finally:
+        module.multi_scene_step = real
+
+
+def campaign_run(hg, name: str, argv: list, iters: int, root: Path) -> dict:
+    """``multi-scene`` through its entry point: finite per-scene losses that
+    fall, a report row a scene, the grid kernels launched once a call for
+    all scenes. -> the report, the step losses [iters, S] and the counts."""
+    from fruitnerf_tpu_torch.parallel import multi_scene as ms
+    from fruitnerf_tpu_torch.scripts import multi_scene_campaign as campaign
+
+    parser = argparse.ArgumentParser()
+    campaign.add_args(parser)
+    args = parser.parse_args([*argv, "--scenes", str(SCENES), "--iters", str(iters),
+                              "--output-dir", str(root)])
+    losses, counts, operands = [], {}, []
+    t0 = time.perf_counter()
+    with recorded_steps(ms, hg, losses, counts, iters, operands):
+        report = campaign.main(args)
+    wall = time.perf_counter() - t0
+    steps = torch.stack(losses).double().cpu().numpy()  # [iters, S]
+    k = min(20, iters // 4)
+    first, last = steps[:k].mean(0), steps[-k:].mean(0)
+    print(f"scale-out: multi-scene {' '.join(argv)} --iters {iters} on {name} in {wall:.3f} s: "
+          f"train {report['train_s']} s, {report['train_rays_per_sec_all_scenes']} rays/s all "
+          f"scenes; loss of the first {k} steps {np.round(first, 4).tolist()}, of the last "
+          f"{np.round(last, 4).tolist()}; rows {report['scenes']}; launches of the steps "
+          f"{counts['launches']}, scenes {counts['scenes']}")
+    check(steps.shape == (iters, SCENES) and bool(np.isfinite(steps).all()),
+          "a campaign loss is not finite")
+    check(bool((last < first).all()), "a campaign scene's loss did not fall")
+    check(len(report["scenes"]) == SCENES, "the campaign report lacks a scene's row")
+    check(report["device"] == name, f"the campaign ran on {report['device']}")
+    return {"report": report, "counts": counts, "wall_s": wall, "operands": operands}
+
+
+def campaign_kernels(hg, tag: str, operands: list) -> tuple[dict, dict]:
+    """``hold_scenes`` on each scene-batched call of a campaign's last step,
+    at its own operands (the trained tables, the step's positions and
+    output gradients) -> ({site: numbers} of the forward, of the backward),
+    the sites of one kernel family each (the other's empty)."""
+    sites = ({}, {})
+    for i, (corner, tables, pos, grad, layout, f) in enumerate(operands):
+        if corner:
+            fwd = lambda t, p, lo=layout, f=f: hg.corner_encode_fwd_cuda(t, p, lo, f)  # noqa: E731
+            bwd = lambda t, p, gr, lo=layout, f=f: hg.corner_encode_bwd_cuda(  # noqa: E731
+                t, p, gr, lo, f, True)
+            plain = lambda t, p, lo=layout, f=f: hg.grid_encode_corner_torch(t, p, lo, f)  # noqa: E731
+        else:
+            fwd = lambda t, p, lo=layout: hg.cell_encode_fwd_cuda(t, p, lo)  # noqa: E731
+            bwd = lambda t, p, gr, lo=layout: hg.cell_encode_bwd_cuda(t, p, gr, lo, True)  # noqa: E731
+            plain = lambda t, p, lo=layout: hg.cell_encode_torch(t, p, lo)  # noqa: E731
+        site = (f"{tag} step call {i} ({layout.num_levels} levels, {layout.total_rows} rows, "
+                f"P {pos.shape[1]} a scene)")
+        r = hold_scenes(hg, f"{'K3/K4' if corner else 'K1/K2'} at the {site}", fwd, bwd, plain,
+                        tables, pos, grad, layout, f, corner)
+        for side, d in zip(sites, ("fwd", "bwd")):
+            side[site] = {"points_per_scene": pos.shape[1], "scenes": tables.shape[0],
+                          "single_launches_ms": r[f"{d}_singles_ms"], **_fields(r, d)}
+    operands.clear()
+    return sites
+
+
+def single_scene_rate(dev, name: str, args) -> dict:
+    """SINGLE_SCENE_STEPS train steps of the campaign's first scene alone,
+    the campaign's config: rays/s beside the campaign's all-scenes rate."""
+    from fruitnerf_tpu_torch.data.builder import dataset_from_scene
+    from fruitnerf_tpu_torch.data.synthetic import render_scene
+    from fruitnerf_tpu_torch.engine import trainer
+    from fruitnerf_tpu_torch.scripts import multi_scene_campaign as campaign
+
+    cfg_scene = campaign.scene_configs(args)[0]
+    data = dataset_from_scene(render_scene(cfg_scene, device=dev), dev, train_fraction=1.0)
+    config = campaign.campaign_config(args, data.cameras.num_cameras)
+    gen = torch.Generator(device=dev).manual_seed(config.seed)
+    state = trainer.init_train_state(config, data.cameras.num_cameras, dev, generator=gen)
+    for _ in range(3):
+        trainer.train_step(state, data, config, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SINGLE_SCENE_STEPS):
+        m = trainer.train_step(state, data, config, gen)
+    m["total_loss"].item()
+    dt = time.perf_counter() - t0
+    rate = SINGLE_SCENE_STEPS * config.train_rays_per_batch / dt
+    print(f"scale-out: one scene alone, {SINGLE_SCENE_STEPS} steps: {dt / SINGLE_SCENE_STEPS * 1e3:.3f}"
+          f" ms a step, {rate:.1f} rays/s on {name}")
+    return {"ms_per_step": dt / SINGLE_SCENE_STEPS * 1e3, "rays_per_sec": rate}
+
+
+# One data-parallel rank (run as ``python -c``): for each of the job's seeds,
+# trains the job's config from it through train_loop on the card, once
+# with the gradients averaged and once with the planted fault (rank 0's
+# shard's gradient broadcast, rank 1's dropped), and saves each run's
+# metrics, parameters after the first step and final parameters.
+DP_RANK = """
+import dataclasses, sys, torch
+import torch.distributed as dist
+from fruitnerf_tpu_torch.bridge import tree_leaves
+from fruitnerf_tpu_torch.engine import trainer
+from fruitnerf_tpu_torch.parallel import mesh as M
+job_path, rank, world, init, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+job = torch.load(job_path, weights_only=False)
+mesh = M.init_data_mesh("gloo", world, rank, init)
+averaged = M.average_gradients
+
+def rank0_only(params, mesh):
+    leaves = tree_leaves(params)
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in leaves])
+    dist.broadcast(flat, src=0)
+    at = 0
+    for p in leaves:
+        p.grad = flat[at : at + p.numel()].view(p.shape)
+        at += p.numel()
+
+try:
+    data, runs = job["data"], []
+    for seed in job["seeds"]:
+        for fault in (False, True):
+            M.average_gradients = rank0_only if fault else averaged
+            cfg = dataclasses.replace(job["config"], seed=seed)
+            metrics, first = [], []
+            def cb(it, st, m):
+                metrics.append({k: float(v) for k, v in m.items()})
+                if not first:
+                    first.extend(p.detach().clone() for p in tree_leaves(st.params))
+            state = trainer.train_loop(
+                cfg, data, generator=torch.Generator(device=data.images.device).manual_seed(seed),
+                mesh=mesh, callbacks=[cb])
+            runs.append({"seed": seed, "fault": fault, "metrics": metrics, "first": first,
+                         "params": tree_leaves(state.params)})
+    torch.save(runs, out)
+finally:
+    M.average_gradients = averaged
+    M.close_data_mesh()
+"""
+DP_KEYS = ("total_loss", "rgb_loss", "semantics_loss", "interlevel_loss", "sparsity_loss", "psnr")
+
+
+def dp_reference(trainer, cfg, data, dev) -> dict:
+    """One rank's DP_STEPS steps of ``train_loop`` from ``cfg.seed``: the
+    metrics, and the parameters and gradients after the first step."""
+    from fruitnerf_tpu_torch.bridge import tree_leaves
+
+    metrics, first, grads = [], [], []
+
+    def cb(it, st, m):
+        metrics.append({k: float(v) for k, v in m.items()})
+        if not first:
+            for p in tree_leaves(st.params):
+                first.append(p.detach().clone())
+                grads.append(torch.zeros_like(p) if p.grad is None else p.grad.detach().clone())
+
+    trainer.train_loop(cfg, data, generator=torch.Generator(device=dev).manual_seed(cfg.seed),
+                       callbacks=[cb])
+    return {"metrics": metrics, "first": first, "grads": grads}
+
+
+def dp_compare(ref: dict, run: dict) -> dict:
+    """A 2-rank run against the 1-rank one: the largest relative loss
+    difference a step, and after the first step the parameters more than
+    DP_PARAM_ATOL apart: how many, the largest one-rank |g| among them
+    relative to its leaf's largest, the largest difference."""
+    rels = [max(abs(m[k] - r[k]) / abs(r[k]) for k in DP_KEYS)
+            for m, r in zip(run["metrics"], ref["metrics"])]
+    apart = numel = 0
+    rel_g = diff = 0.0
+    for a, b, g in zip(ref["first"], run["first"], ref["grads"]):
+        d = (a - b.to(a.device)).abs()
+        far = d > DP_PARAM_ATOL
+        apart += int(far.sum())
+        numel += d.numel()
+        diff = max(diff, float(d.max()))
+        if far.any():
+            rel_g = max(rel_g, float(g.abs()[far].max() / g.abs().max().clamp_min(1e-30)))
+    return {"rels": rels, "apart": apart, "apart_share": apart / numel,
+            "apart_max_rel_g": rel_g, "first_step_max_diff": diff}
+
+
+def dp_check(dev, scene, name: str) -> dict:
+    """Two gloo ranks sharing the card against one rank: the ``fruit_nerf``
+    grid preset at full width, DP_RAYS rays (half a rank), DP_STEPS steps
+    of ``train_loop`` from each of DP_SEEDS. The first step's losses within
+    DP_FIRST_RTOL, the parameters after it apart only where the one-rank
+    gradient is rounding noise (DP_FLIP_REL_G, 2 * DP_MAX_LR), every
+    step's losses within DP_DRIFT_RTOL, the ranks bitwise equal; the
+    planted fault breaks them. Then one step on an NCCL group of one rank,
+    bitwise equal to the step without a mesh."""
+    import socket
+
+    from fruitnerf_tpu_torch.bridge import tree_leaves, tree_map
+    from fruitnerf_tpu_torch.configs import apply_overrides, fruit_nerf
+    from fruitnerf_tpu_torch.data.builder import dataset_from_scene
+    from fruitnerf_tpu_torch.engine import trainer
+    from fruitnerf_tpu_torch.parallel import mesh as M
+
+    data = dataset_from_scene(scene, dev)
+    cfg = apply_overrides(fruit_nerf(data.cameras.num_cameras),
+                          {"train_rays_per_batch": DP_RAYS, "sparsity_loss": 0.005})
+    cfg = dataclasses.replace(cfg, max_iters=DP_STEPS, steps_per_eval=0, steps_per_save=0)
+    seeds = [cfg.seed + s for s in DP_SEEDS]
+    refs = {s: dp_reference(trainer, dataclasses.replace(cfg, seed=s), data, dev) for s in seeds}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch.save({"config": cfg, "data": data, "seeds": seeds}, tmp / "job.pt")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DP_RANK, str(tmp / "job.pt"), str(r), "2",
+             f"file://{tmp / 'pg'}", str(tmp / f"rank{r}.pt")],
+            cwd=Path(__file__).resolve().parent,  # the checkout: the port's package
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+        try:
+            errs = [p.communicate(timeout=600)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        for p, e in zip(procs, errs):
+            check(p.returncode == 0, f"a data-parallel rank failed:\n{e[-3000:]}")
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    ranks_s = time.perf_counter() - t0
+    out = {"seeds": seeds, "averaged": [], "fault": []}
+    for run0, run1 in zip(*ranks):
+        same = run0["metrics"] == run1["metrics"] and all(
+            torch.equal(a, b) for a, b in zip(run0["params"], run1["params"]))
+        c = dp_compare(refs[run0["seed"]], run0)
+        c.update(ranks_bitwise=same, steps=len(run0["metrics"]))
+        c["passes"] = (c["rels"][0] <= DP_FIRST_RTOL and max(c["rels"]) <= DP_DRIFT_RTOL
+                       and c["apart_max_rel_g"] <= DP_FLIP_REL_G
+                       and c["first_step_max_diff"] <= 2 * DP_MAX_LR)
+        out["fault" if run0["fault"] else "averaged"].append(c)
+        print(f"scale-out: data parallel, seed {run0['seed']}, "
+              f"{'planted fault (rank 1 dropped)' if run0['fault'] else 'averaged'}: 2 gloo "
+              f"ranks on {name} against 1, {DP_STEPS} steps of {DP_RAYS} rays: losses' max rel "
+              f"diff a step {[float(f'{x:.3e}') for x in c['rels']]}; after the first step "
+              f"{c['apart']} parameters ({c['apart_share']:.3e}) more than {DP_PARAM_ATOL:g} "
+              f"apart, their one-rank |g| at most {c['apart_max_rel_g']:.3e} of their leaf's max"
+              f" (tol {DP_FLIP_REL_G:g}), at most {c['first_step_max_diff']:.3e} apart (tol "
+              f"{2 * DP_MAX_LR:g}); ranks bitwise equal {same}; the checks pass: {c['passes']}")
+    print(f"scale-out: data parallel: the ranks' runs {ranks_s:.1f} s with start-up; tol "
+          f"{DP_FIRST_RTOL:g} at the first step, {DP_DRIFT_RTOL:g} after")
+    for c in out["averaged"]:
+        check(c["steps"] == DP_STEPS, "a data-parallel run stopped early")
+        check(c["rels"][0] <= DP_FIRST_RTOL, f"2 ranks' first losses {c['rels'][0]:.3e} apart")
+        check(c["apart_max_rel_g"] <= DP_FLIP_REL_G and c["first_step_max_diff"] <= 2 * DP_MAX_LR,
+              "after the first step, 2 ranks' parameters part where the gradient is no noise")
+        check(max(c["rels"]) <= DP_DRIFT_RTOL, f"2 ranks' losses {max(c['rels']):.3e} apart")
+        check(c["ranks_bitwise"], "the two ranks differ")
+    check(not any(c["passes"] for c in out["fault"]), "the checks pass a planted fault")
+
+    # NCCL, one rank: the meshed step equals the plain one, bitwise
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mesh = M.init_data_mesh("nccl", 1, 0, f"tcp://localhost:{port}")
+    try:
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        a = trainer.init_train_state(cfg, data.cameras.num_cameras, dev, generator=gen)
+        b = trainer.init_train_state(cfg, data.cameras.num_cameras, dev,
+                                     params=tree_map(a.params, lambda t: t.detach().clone()))
+        draws = trainer.draw_step(cfg, data, gen)
+        ma = trainer.train_step(a, data, cfg, draws=draws, mesh=mesh)
+        mb = trainer.train_step(b, data, cfg, draws=draws)
+        torch.cuda.synchronize()
+        nccl_same = all(torch.equal(ma[k], mb[k]) for k in mb) and all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(a.params), tree_leaves(b.params)))
+    finally:
+        M.close_data_mesh()
+    print(f"scale-out: one NCCL rank: the meshed step bitwise equal to the plain one: {nccl_same}")
+    check(nccl_same, "the NCCL world-1 step differs from the step without a mesh")
+    out["nccl_world1_bitwise"] = nccl_same
+    return out
+
+
+def mesh_check(dev, hg, name: str, root: Path) -> dict:
+    """``--mesh``: a short grid run through ``train``, then render and export
+    with devices=[card, card] against the unsharded result, and ``eval``,
+    ``render``, ``export`` and the viewer with ``--mesh`` (a one-card mesh
+    here) against the commands without it."""
+    from fruitnerf_tpu_torch.data.builder import cameras_from_scene
+    from fruitnerf_tpu_torch.data.synthetic import SyntheticSceneConfig, render_scene
+    from fruitnerf_tpu_torch.engine.runs import load_run
+    from fruitnerf_tpu_torch.engine.trainer import render_camera
+    from fruitnerf_tpu_torch.export.ply import read_ply
+    from fruitnerf_tpu_torch.export.volume_sampler import ExportConfig, sample_volume
+    from fruitnerf_tpu_torch.scripts import evaluate, export, render, train
+    from fruitnerf_tpu_torch.viewer.server import ViewerSession
+
+    run = root / "mesh_run"
+    run_cli(train, ["--data", "synthetic", "--max-iters", str(MESH_ITERS), "--output-dir",
+                    str(run), "--sparsity-loss", "0.005"])
+    manifest, config, state = load_run(run, dev)
+    cams = cameras_from_scene(render_scene(SyntheticSceneConfig(num_cameras=24, image_size=128),
+                                           device=dev), dev)
+    two = [dev, dev]
+    one_r = render_camera(state.params, cams, 3, config)
+    two_r = render_camera(state.params, cams, 3, config, devices=two)
+    render_diff = max((one_r[k] - two_r[k]).abs().max().item() for k in one_r)
+    exp = ExportConfig(num_points_per_side=64, semantic_logit_threshold=-1e9,
+                       density_threshold=-1.0, colormap_prob_threshold=0.0)
+    clouds = [sample_volume(state.params["model"], config.model, exp, 1.0, root / f"x{i}",
+                            progress=False, devices=d) for i, d in enumerate((None, two))]
+
+    def srt(c):
+        o = np.lexsort(c["points"].T[::-1])
+        return c["points"][o], c["colors"][o]
+
+    (pa, ca), (pb, cb) = srt(clouds[0]["density"]), srt(clouds[1]["density"])
+    export_same = pa.shape == pb.shape and bool((pa == pb).all())
+    color_diff = float(np.abs(ca - cb).max()) if export_same else float("inf")
+    outs = {}
+    for flag in ([], ["--mesh"]):
+        tag = "mesh" if flag else "plain"
+        outs[f"eval_{tag}"] = run_cli(evaluate, ["--load-dir", str(run), "--data", "synthetic",
+                                                 *flag])
+        run_cli(render, ["--load-dir", str(run), "--data", "synthetic", "--output-dir",
+                         str(root / f"r_{tag}"), "--cameras", "0", "3", *flag])
+        run_cli(export, ["--load-dir", str(run), "--output-dir", str(root / f"e_{tag}"),
+                         "--num-points-per-side", "96", *flag])
+    timing = ("num_rays_per_sec", "fps")
+    eval_same = {k: v for k, v in outs["eval_plain"].items() if k not in timing} == \
+        {k: v for k, v in outs["eval_mesh"].items() if k not in timing}
+    from PIL import Image
+
+    render_same = all(
+        np.array_equal(np.asarray(Image.open(p)), np.asarray(Image.open(root / "r_mesh" / p.name)))
+        for p in sorted((root / "r_plain").glob("*.png")))
+    ply_same = all(np.array_equal(read_ply(root / "e_plain" / f"{n}.ply")["points"],
+                                  read_ply(root / "e_mesh" / f"{n}.ply")["points"])
+                   for n in ("semantic", "semantic_colormap", "density"))
+    views = [ViewerSession.from_run_dir(run, dev, d) for d in (None, [dev])]
+    view_same = np.array_equal(*(v.render_frame(0.8, 0.5, 2.5, 128, "rgb") for v in views))
+    print(f"scale-out: --mesh on {name}: render on [card, card] max abs diff {render_diff:.3e} "
+          f"(tol {RENDER_MESH_ATOL:g}); export on [card, card] {pa.shape[0]} points, the same "
+          f"set {export_same}, colours max diff {color_diff:.3e}; eval --mesh as eval "
+          f"{eval_same}, render --mesh PNGs equal {render_same}, export --mesh clouds equal "
+          f"{ply_same}, viewer --mesh frame equal {view_same}")
+    check(render_diff <= RENDER_MESH_ATOL, "the two-shard render differs")
+    check(export_same and color_diff <= RENDER_MESH_ATOL, "the two-shard export differs")
+    check(eval_same and render_same and ply_same and view_same,
+          "a --mesh command differs from the command without it")
+    return {"render_max_abs_diff": render_diff, "export_points": int(pa.shape[0])}
+
+
+def scaleout_phase(dev, hg, name: str, seed: int, scene) -> dict:
+    """The scene-batched kernels, the grid and parity campaigns (batched
+    K1/K2 and K3/K4 on their paths), one scene alone timed beside the
+    campaign, data parallelism and --mesh. -> {"kernels": the batched
+    kernels' entries, with their launches; the rest's numbers}."""
+    t_start = time.perf_counter()
+    entries = scene_kernels(hg, dev, seed)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        grid = campaign_run(hg, name, GRID_CAMPAIGN, CAMPAIGN_ITERS, root / "grid")
+        from fruitnerf_tpu_torch.scripts import multi_scene_campaign as campaign
+
+        grid_args = argparse.Namespace(**grid["report"]["args"])
+        cfg = campaign.campaign_config(grid_args, grid_args.num_cameras)
+        want = predicted_cell_launches(cfg, CAMPAIGN_ITERS, 0)
+        got = grid["counts"]["launches"]
+        print(f"scale-out: the grid campaign's steps launched {got}; one scene's steps would "
+              f"launch {want}; scenes {grid['counts']['scenes']}")
+        check(got == want, "the grid campaign's K1/K2 launches are not one a call for all scenes")
+        check(all(grid["counts"]["scenes"][k] == SCENES * got[k] for k in got),
+              "a grid campaign launch did not take every scene")
+        check(len(grid["operands"]) == 2, "the grid campaign's last step: not 2 batched K2 calls")
+        grid_sites = campaign_kernels(hg, "grid campaign", grid["operands"])
+        single = single_scene_rate(dev, name, grid_args)
+        parity = campaign_run(hg, name, PARITY_CAMPAIGN, CAMPAIGN_PARITY_ITERS,
+                              root / "parity")
+        parity_args = argparse.Namespace(**parity["report"]["args"])
+        pcfg = campaign.campaign_config(parity_args, parity_args.num_cameras)
+        pwant = predicted_hash_launches(pcfg, range(CAMPAIGN_PARITY_ITERS), 0, 0)
+        pgot = parity["counts"]["launches"]
+        print(f"scale-out: the parity campaign's steps launched {pgot}, predicted {pwant}")
+        check(pgot == pwant, "the parity campaign's K3/K4 launches differ from one a call")
+        check(all(parity["counts"]["scenes"][k] == SCENES * pgot[k] for k in pgot),
+              "a parity campaign launch did not take every scene")
+        last = predicted_hash_launches(
+            pcfg, range(CAMPAIGN_PARITY_ITERS - 1, CAMPAIGN_PARITY_ITERS), 0, 0)
+        check(len(parity["operands"]) == last["corner_encode_bwd"],
+              "the parity campaign's last step: not its predicted batched K4 calls")
+        parity_sites = campaign_kernels(hg, "parity campaign", parity["operands"])
+        out["dp"] = dp_check(dev, scene, name)
+        out["mesh"] = mesh_check(dev, hg, name, root)
+    for e in entries:
+        base = e["name"].removesuffix("_scenes")
+        e["launches"] = got[base] + pgot[base]
+        sites = grid_sites if base.startswith("cell") else parity_sites
+        e["campaign_step"] = sites[base.endswith("_bwd")]
+        e["max_abs_err"] = max(e["max_abs_err"],
+                               *(r["max_abs_err"] for r in e["campaign_step"].values()))
+    out.update(kernels=entries, campaign={k: grid["report"][k] for k in (
+        "train_s", "train_rays_per_sec_all_scenes", "final_loss_per_scene",
+        "final_psnr_per_scene", "scenes")}, single_scene=single,
+        parity_campaign_train_s=parity["report"]["train_s"],
+        seconds=time.perf_counter() - t_start)
+    print(f"scale-out: every check passed in {out['seconds']:.3f} s")
+    return out
+
+
+def _other_kernels(lib, hg, corner: bool):
+    """Wrappers of another build's cell_encode or corner_encode pair (of
+    this checkout's C interface: one scene here), uncounted: -> (fwd(table,
+    pos, layout, f), bwd(table, pos, grad, layout, f)); cell mode has f =
+    2."""
     kind = "corner" if corner else "cell"
-    sizer = getattr(lib, f"{kind}_encode_bwd_work_bytes", None)
-    if sizer is None:  # drop the work pointer from the signature
-        argtypes = getattr(lib, f"{kind}_encode_bwd").argtypes
-        getattr(lib, f"{kind}_encode_bwd").argtypes = argtypes[:5] + argtypes[6:]
-    else:
-        sizer.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * (2 if corner else 1)
-        sizer.restype = ctypes.c_longlong
+    sizer = getattr(lib, f"{kind}_encode_bwd_work_bytes")
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
     def fwd(table, pos, layout, f):
         out = torch.empty((pos.shape[0], f * layout.num_levels), device=pos.device)
-        head = (pos.data_ptr(), table.data_ptr(), out.data_ptr(), pos.shape[0])
+        head = (pos.data_ptr(), table.data_ptr(), out.data_ptr(), pos.shape[0], 1, 0, 0)
         levels = (layout.num_levels, *hg._level_arrays(layout), stream())
         err = (lib.corner_encode_fwd(*head, f, *levels) if corner
                else lib.cell_encode_fwd(*head, *levels))
@@ -2183,15 +2856,12 @@ def _other_kernels(lib, hg, corner: bool):
         return out
 
     def bwd(table, pos, grad, layout, f):
-        dtable, dpos = torch.zeros_like(table), torch.empty_like(pos)
+        dtable, dpos = torch.empty_like(table), torch.empty_like(pos)
+        nbytes = (sizer(layout.total_rows, f, layout.num_levels, 1) if corner
+                  else sizer(layout.total_rows, layout.num_levels, 1))
+        work = torch.empty(nbytes, dtype=torch.uint8, device=pos.device)
         head = (pos.data_ptr(), table.data_ptr(), grad.data_ptr(), dtable.data_ptr(),
-                dpos.data_ptr())
-        if sizer is not None:
-            nbytes = (sizer(layout.total_rows, f, layout.num_levels) if corner
-                      else sizer(layout.total_rows, layout.num_levels))
-            work = torch.empty(nbytes, dtype=torch.uint8, device=pos.device)
-            head = (*head, work.data_ptr())
-        head = (*head, pos.shape[0])
+                dpos.data_ptr(), work.data_ptr(), pos.shape[0], 1, 0, 0)
         levels = (layout.num_levels, *hg._level_arrays(layout), stream())
         err = (lib.corner_encode_bwd(*head, f, 1, *levels) if corner
                else lib.cell_encode_bwd(*head, 1, *levels))
@@ -2386,6 +3056,8 @@ def main(argv=None) -> int:
         for k, d in zip(pair, ("fwd", "bwd")):
             k[key] = {at: {"points": r["points"], **_fields(r, d)} for at, r in step.items()}
             k["max_abs_err"] = max(k["max_abs_err"], *(r["max_abs_err"] for r in k[key].values()))
+    scaleout = scaleout_phase(dev, hg, name, args.seed, scene)
+    kernels += scaleout["kernels"]  # the scene-batched launches of K1-K4
     check("jax" not in sys.modules, "the port imported jax")
     jax_package = sorted(m for m in sys.modules
                          if m == "fruitnerf_tpu" or m.startswith("fruitnerf_tpu."))

@@ -15,6 +15,8 @@ Commands, each the twin of the JAX package's command of the same name:
                 --bounding-box-min/max flags
   viewer        interactive orbit viewer and crop-box picker over HTTP
   speed-probe   train-step rates of the grid recipe candidates on the card
+  multi-scene   train S synthetic orchards in one batched step, then export
+                and count each
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import sys
 from .scripts import count as count_cmd
 from .scripts import evaluate as eval_cmd
 from .scripts import export as export_cmd
+from .scripts import multi_scene_campaign as multi_scene_cmd
 from .scripts import orchard_e2e as orchard_cmd
 from .scripts import process_data as process_cmd
 from .scripts import render as render_cmd
@@ -43,6 +46,7 @@ COMMANDS = {
     "suggest-crop": crop_cmd,
     "viewer": viewer_cmd,
     "speed-probe": speed_cmd,
+    "multi-scene": multi_scene_cmd,
 }
 
 

@@ -195,3 +195,42 @@ def params_to_jax(params: dict, model) -> dict:
     tree = tree_map(params, lambda t: t.detach().cpu().numpy())
     tree["model"] = _convert_tables(tree["model"], model, hash_table_to_jax, _grid_table_to_jax)
     return tree
+
+
+def zip_trees(trees: list, fn):
+    """Trees of one structure -> one tree whose leaves are ``fn`` of the
+    list of theirs."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: zip_trees([t[k] for t in trees], fn) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [zip_trees(list(xs), fn) for xs in zip(*trees)]
+    return fn(trees)
+
+
+def stack_trees(trees: list):
+    """Trees of one structure -> one tree whose leaves (tensors or arrays)
+    stack theirs on a new leading axis, the scene axis."""
+    return zip_trees(trees, lambda xs: torch.stack(xs) if isinstance(xs[0], torch.Tensor)
+                     else np.stack([np.asarray(x) for x in xs]))
+
+
+def index_tree(tree, s: int):
+    """Scene ``s`` of a stacked tree (views of its leaves)."""
+    return tree_map(tree, lambda t: t[s])
+
+
+def scene_params_from_jax(tree: dict, model, device) -> dict:
+    """The parameters of a JAX multi-scene state (leaves [S, ...], as
+    ``init_multi_scene_state`` stacks them) -> the port's, stacked alike."""
+    num_scenes = len(tree["camera_opt"])
+    return stack_trees([params_from_jax(index_tree(tree, s), model, device)
+                        for s in range(num_scenes)])
+
+
+def scene_params_to_jax(params: dict, model) -> dict:
+    """The port's stacked parameters -> a JAX-layout multi-scene tree with
+    numpy leaves [S, ...]."""
+    num_scenes = params["camera_opt"].shape[0]
+    return stack_trees([params_to_jax(index_tree(params, s), model)
+                        for s in range(num_scenes)])

@@ -11,10 +11,17 @@ import torch
 
 
 class _TruncExp(torch.autograd.Function):
+    # the setup_context form, so that it runs under torch.func (the
+    # multi-scene step is a vmap of grad); its body is elementwise
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
+    def forward(x):
         return torch.exp(torch.clamp(x, -30.0, 30.0))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, g):

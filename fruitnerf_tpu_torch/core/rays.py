@@ -29,6 +29,11 @@ class RayBundle:
             *(getattr(self, f.name)[sl] for f in dataclasses.fields(self))
         )
 
+    def to(self, device) -> "RayBundle":
+        return RayBundle(
+            *(getattr(self, f.name).to(device) for f in dataclasses.fields(self))
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class RaySamples:

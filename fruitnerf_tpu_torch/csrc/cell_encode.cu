@@ -45,6 +45,13 @@
 // the warps through shared memory, and written once, coalesced.
 // Everything is float32. The TPU kernel rounds the table, the saved rows
 // and the per-point dTable terms to bfloat16; that divergence is deliberate.
+//
+// A scene axis (blockIdx.y), the counterpart of jax.vmap over the
+// pallas_calls: S scenes of P points each, scene s reading its positions
+// and table at s times their scene strides (0: one array for every scene)
+// and writing its own outputs. The backward's column maxima and fixed-point
+// scales are taken per (scene, column) from that scene's gradients, so
+// scene s of a batched launch equals a launch of scene s alone, bitwise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,6 +115,7 @@ __global__ void __launch_bounds__(TILE * MAX_WARPS)
 cell_encode_fwd_kernel(const float* __restrict__ pos,
                        const float4* __restrict__ table,
                        float* __restrict__ out, int num_points,
+                       long long pos_stride, long long table_stride4,
                        CellLevels lv) {
   __shared__ float s_pos[TILE * 3];
   __shared__ float s_out[TILE * (2 * CELL_MAX_LEVELS + 1)];
@@ -117,6 +125,10 @@ cell_encode_fwd_kernel(const float* __restrict__ pos,
   const int num_warps = blockDim.x >> 5;
   const long long p0 = (long long)blockIdx.x * TILE;
   const int n = (int)min((long long)TILE, (long long)num_points - p0);
+  const long long scene = blockIdx.y;
+  pos += scene * pos_stride;
+  table += scene * table_stride4;
+  out += scene * num_points * width;
 
   for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) s_pos[i] = pos[3 * p0 + i];
   __syncthreads();
@@ -158,7 +170,8 @@ cell_encode_bwd_kernel(const float* __restrict__ pos,
                        unsigned long long* __restrict__ acc,
                        const unsigned* __restrict__ colmax,
                        float* __restrict__ dpos, int num_points,
-                       int needs_pos_grad, CellLevels lv) {
+                       long long pos_stride, long long table_stride4,
+                       long long entries, int needs_pos_grad, CellLevels lv) {
   __shared__ double s_scale[2 * CELL_MAX_LEVELS];  // fixed-point scale of each column
   __shared__ float s_pos[TILE * 3];
   __shared__ float s_grad[TILE * (2 * CELL_MAX_LEVELS + 1)];
@@ -170,6 +183,13 @@ cell_encode_bwd_kernel(const float* __restrict__ pos,
   const int num_warps = blockDim.x >> 5;
   const long long p0 = (long long)blockIdx.x * TILE;
   const int n = (int)min((long long)TILE, (long long)num_points - p0);
+  const long long scene = blockIdx.y;
+  pos += scene * pos_stride;
+  table += scene * table_stride4;
+  grad += scene * num_points * width;
+  acc += scene * entries;
+  colmax += scene * width;
+  if (needs_pos_grad) dpos += scene * num_points * 3;
 
   const float* src = grad + p0 * width;
   for (int i = threadIdx.x; i < n * width; i += blockDim.x)
@@ -280,21 +300,33 @@ static unsigned tiles(int num_points) {
   return (unsigned)((num_points + TILE - 1) / TILE);
 }
 
+// Grid of the launch: the point tiles of a scene by the scenes.
+static dim3 scene_grid(int num_points, int num_scenes) {
+  return dim3(tiles(num_points), (unsigned)num_scenes);
+}
+
 // Plain C interface, loaded with ctypes. Pointers are device pointers except
 // the four per-level arrays, which are host arrays copied into the kernel's
-// parameters. Returns the cudaError_t of the launch (0 on success).
+// parameters. num_scenes scenes (1..65535) of num_points points each: scene
+// s reads pos + s * pos_stride ([P, 3]) and table + s * table_stride
+// ([sum T_l, 16]), strides in floats (0: one array for every scene; the
+// table's a multiple of 4), and writes out[s] of a contiguous [S, P, 2L].
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int cell_encode_fwd(const float* pos, const float* table,
-                               float* out, int num_points, int num_levels,
-                               const int* res, const int* rows,
+                               float* out, int num_points, int num_scenes,
+                               long long pos_stride, long long table_stride,
+                               int num_levels, const int* res, const int* rows,
                                const int* offset, const int* direct,
                                void* stream) {
   CellLevels lv;
-  if (!fill_levels(&lv, num_levels, res, rows, offset, direct))
+  if (!fill_levels(&lv, num_levels, res, rows, offset, direct) ||
+      num_scenes < 1 || num_scenes > 65535 || table_stride % 4)
     return (int)cudaErrorInvalidValue;
   if (num_points <= 0) return 0;
-  cell_encode_fwd_kernel<<<tiles(num_points), tile_block(num_levels), 0,
-                           (cudaStream_t)stream>>>(
-      pos, reinterpret_cast<const float4*>(table), out, num_points, lv);
+  cell_encode_fwd_kernel<<<scene_grid(num_points, num_scenes),
+                           tile_block(num_levels), 0, (cudaStream_t)stream>>>(
+      pos, reinterpret_cast<const float4*>(table), out, num_points, pos_stride,
+      table_stride / 4, lv);
   return (int)cudaGetLastError();
 }
 
@@ -302,33 +334,41 @@ static long long table_rows(const CellLevels& lv) {
   return (long long)lv.offset[lv.num_levels - 1] + lv.rows[lv.num_levels - 1];
 }
 
-// Bytes of the backward's work buffer at a table of total_rows rows.
+// Bytes of the backward's work buffer at a table of total_rows rows, for
+// num_scenes scenes.
 extern "C" long long cell_encode_bwd_work_bytes(long long total_rows,
-                                                int num_levels) {
-  return fixed_work_bytes(total_rows * 16, 2 * num_levels);
+                                                int num_levels, int num_scenes) {
+  return fixed_work_bytes(total_rows * 16, 2 * num_levels, num_scenes);
 }
 
+// Scenes, strides and table as in cell_encode_fwd; grad is a contiguous
+// [S, P, 2L], dtable a contiguous [S, sum T_l, 16] and dpos [S, P, 3].
 // dtable is written whole (every row, touched or not); work is
 // cell_encode_bwd_work_bytes long and 8-byte aligned; dpos is written only
 // when needs_pos_grad is nonzero. With no points dtable is zeroed.
 extern "C" int cell_encode_bwd(const float* pos, const float* table,
                                const float* grad, float* dtable, float* dpos,
-                               void* work, int num_points, int needs_pos_grad,
-                               int num_levels, const int* res,
-                               const int* rows, const int* offset,
-                               const int* direct, void* stream) {
+                               void* work, int num_points, int num_scenes,
+                               long long pos_stride, long long table_stride,
+                               int needs_pos_grad, int num_levels,
+                               const int* res, const int* rows,
+                               const int* offset, const int* direct,
+                               void* stream) {
   CellLevels lv;
-  if (!fill_levels(&lv, num_levels, res, rows, offset, direct))
+  if (!fill_levels(&lv, num_levels, res, rows, offset, direct) ||
+      num_scenes < 1 || num_scenes > 65535 || table_stride % 4)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const long long entries = table_rows(lv) * 16;
-  if (num_points <= 0) return (int)cudaMemsetAsync(dtable, 0, sizeof(float) * entries, s);
-  fixed_begin(s, work, entries, grad, num_points, 2 * num_levels);
+  if (num_points <= 0)
+    return (int)cudaMemsetAsync(dtable, 0, sizeof(float) * entries * num_scenes, s);
+  fixed_begin(s, work, entries, grad, num_points, 2 * num_levels, num_scenes);
   unsigned long long* acc = reinterpret_cast<unsigned long long*>(work);
-  cell_encode_bwd_kernel<<<tiles(num_points), tile_block(num_levels), 0, s>>>(
+  cell_encode_bwd_kernel<<<scene_grid(num_points, num_scenes),
+                           tile_block(num_levels), 0, s>>>(
       pos, reinterpret_cast<const float4*>(table), grad, acc,
-      reinterpret_cast<const unsigned*>(acc + entries), dpos, num_points,
-      needs_pos_grad, lv);
-  fixed_end(s, work, entries, dtable, num_points, 16, 2, lv);
+      reinterpret_cast<const unsigned*>(acc + entries * num_scenes), dpos,
+      num_points, pos_stride, table_stride / 4, entries, needs_pos_grad, lv);
+  fixed_end(s, work, entries, dtable, num_points, 16, 2, lv, num_scenes);
   return (int)cudaGetLastError();
 }

@@ -61,6 +61,11 @@
 // Everything is float32. The TPU kernel rounds the table and the 8-corner
 // sum to the compute dtype, and in its backward the dTable terms and the
 // dPos products (bfloat16 on the preset); that divergence is deliberate.
+//
+// A scene axis (blockIdx.y), as in cell_encode.cu: S scenes of P points,
+// each reading its positions and table at its scene strides (0: one array
+// for every scene), its column maxima and fixed-point scales its own, so
+// scene s of a batched launch equals a launch of scene s alone, bitwise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -198,11 +203,16 @@ static size_t bwd_smem(int width, int warps) {
   return sizeof(double) * width + fwd_smem(width) + sizeof(float) * warps * TILE * 3;
 }
 
+// The forward's blocks an SM must hold: 3 at F <= 2 (40 registers a
+// thread, where they fit), 2 from F = 3 (64). Left to itself ptxas aims the
+// F = 3 and 4 forwards at 40 as well, and since the scene axis keeps the
+// scene's table pointer live in the level loop they spill there.
 template <int F>
-__global__ void __launch_bounds__(TILE * MAX_WARPS)
+__global__ void __launch_bounds__(TILE * MAX_WARPS, F <= 2 ? 3 : 2)
 corner_encode_fwd_kernel(const float* __restrict__ pos,
                          const float* __restrict__ table,
                          float* __restrict__ out, int num_points,
+                         long long pos_stride, long long table_stride,
                          CornerLevels lv) {
   extern __shared__ float smem[];  // fwd_smem
   const int num_levels = lv.num_levels;
@@ -213,8 +223,13 @@ corner_encode_fwd_kernel(const float* __restrict__ pos,
   const int num_warps = blockDim.x >> 5;
   const long long p0 = (long long)blockIdx.x * TILE;
   const int n = (int)min((long long)TILE, (long long)num_points - p0);
+  // the scene's table; its positions and outputs are offset where they are
+  // read and written, so that no other pointer stays live in the level loop
+  const long long scene = blockIdx.y;
+  table += scene * table_stride;
 
-  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) s_pos[i] = pos[3 * p0 + i];
+  const float* src = pos + scene * pos_stride + 3 * p0;
+  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) s_pos[i] = src[i];
   __syncthreads();
   const bool live = lane < n;
   const float x = live ? s_pos[3 * lane] : 0.f;
@@ -249,7 +264,7 @@ corner_encode_fwd_kernel(const float* __restrict__ pos,
   }
   __syncthreads();
   // out is [P, L*F] float, level-major: the tile's rows are contiguous
-  float* dst = out + p0 * width;
+  float* dst = out + ((long long)blockIdx.y * num_points + p0) * width;
   for (int i = threadIdx.x; i < n * width; i += blockDim.x)
     dst[i] = s_out[(i / width) * stride + i % width];
 }
@@ -262,7 +277,8 @@ corner_encode_bwd_kernel(const float* __restrict__ pos,
                          unsigned long long* __restrict__ acc,
                          const unsigned* __restrict__ colmax,
                          float* __restrict__ dpos, int num_points,
-                         int needs_pos_grad, CornerLevels lv) {
+                         long long pos_stride, long long table_stride,
+                         long long entries, int needs_pos_grad, CornerLevels lv) {
   extern __shared__ double s_scale[];  // bwd_smem: [width] scales, then floats
   const unsigned kAll = 0xffffffffu;
   const int num_levels = lv.num_levels;
@@ -275,6 +291,13 @@ corner_encode_bwd_kernel(const float* __restrict__ pos,
   const int num_warps = blockDim.x >> 5;
   const long long p0 = (long long)blockIdx.x * TILE;
   const int n = (int)min((long long)TILE, (long long)num_points - p0);
+  const long long scene = blockIdx.y;
+  pos += scene * pos_stride;
+  table += scene * table_stride;
+  grad += scene * num_points * width;
+  acc += scene * entries;
+  colmax += scene * width;
+  if (needs_pos_grad) dpos += scene * num_points * 3;
 
   const float* src = grad + p0 * width;
   for (int i = threadIdx.x; i < n * width; i += blockDim.x)
@@ -402,14 +425,25 @@ static unsigned tiles(int num_points) {
   return (unsigned)((num_points + TILE - 1) / TILE);
 }
 
+// Grid of a launch: the point tiles of a scene by the scenes.
+static dim3 scene_grid(int num_points, int num_scenes) {
+  return dim3(tiles(num_points), (unsigned)num_scenes);
+}
+
+// What every launch takes beyond its pointers.
+struct CornerLaunch {
+  int num_points, num_scenes, needs_pos_grad;
+  long long pos_stride, table_stride;
+};
+
 template <int F>
 static void launch_fwd(cudaStream_t stream, const float* pos,
-                       const float* table, float* out, int num_points,
+                       const float* table, float* out, const CornerLaunch& c,
                        const CornerLevels& lv) {
   const dim3 block = tile_block(lv.num_levels);
-  corner_encode_fwd_kernel<F><<<tiles(num_points), block,
+  corner_encode_fwd_kernel<F><<<scene_grid(c.num_points, c.num_scenes), block,
                                 fwd_smem(lv.num_levels * F), stream>>>(
-      pos, table, out, num_points, lv);
+      pos, table, out, c.num_points, c.pos_stride, c.table_stride, lv);
 }
 
 static long long table_rows(const CornerLevels& lv) {
@@ -419,37 +453,51 @@ static long long table_rows(const CornerLevels& lv) {
 template <int F>
 static void launch_bwd(cudaStream_t stream, const float* pos,
                        const float* table, const float* grad, float* dtable,
-                       float* dpos, void* work, int num_points,
-                       int needs_pos_grad, const CornerLevels& lv) {
+                       float* dpos, void* work, const CornerLaunch& c,
+                       const CornerLevels& lv) {
   const int width = lv.num_levels * F;
   const long long entries = table_rows(lv) * F;
-  fixed_begin(stream, work, entries, grad, num_points, width);
+  fixed_begin(stream, work, entries, grad, c.num_points, width, c.num_scenes);
   unsigned long long* acc = reinterpret_cast<unsigned long long*>(work);
   const dim3 block = tile_block(lv.num_levels);
-  corner_encode_bwd_kernel<F><<<tiles(num_points), block,
+  corner_encode_bwd_kernel<F><<<scene_grid(c.num_points, c.num_scenes), block,
                                 bwd_smem(width, block.x / 32), stream>>>(
-      pos, table, grad, acc, reinterpret_cast<const unsigned*>(acc + entries), dpos,
-      num_points, needs_pos_grad, lv);
-  fixed_end(stream, work, entries, dtable, num_points, F, F, lv);
+      pos, table, grad, acc,
+      reinterpret_cast<const unsigned*>(acc + entries * c.num_scenes), dpos,
+      c.num_points, c.pos_stride, c.table_stride, entries, c.needs_pos_grad, lv);
+  fixed_end(stream, work, entries, dtable, c.num_points, F, F, lv, c.num_scenes);
+}
+
+static int bad_scenes(int num_scenes, long long table_stride) {
+  return num_scenes < 1 || num_scenes > 65535 || table_stride % 4;
 }
 
 // Plain C interface, loaded with ctypes. Pointers are device pointers except
 // the four per-level arrays, which are host arrays copied into the kernel's
 // parameters. 1 <= num_features <= CORNER_MAX_FEATURES; the table is 16-byte
-// aligned. Returns the cudaError_t of the launch (0 on success).
+// aligned. num_scenes scenes (1..65535) of num_points points each: scene s
+// reads pos + s * pos_stride ([P, 3]) and table + s * table_stride
+// ([L*T, F]), strides in floats (0: one array for every scene; the table's
+// a multiple of 4, so every scene's table is 16-byte aligned), and writes
+// out[s] of a contiguous [S, P, L*F]. Returns the cudaError_t of the launch
+// (0 on success).
 extern "C" int corner_encode_fwd(const float* pos, const float* table,
-                                 float* out, int num_points, int num_features,
-                                 int num_levels, const int* res,
-                                 const int* rows, const int* offset,
-                                 const int* direct, void* stream) {
+                                 float* out, int num_points, int num_scenes,
+                                 long long pos_stride, long long table_stride,
+                                 int num_features, int num_levels,
+                                 const int* res, const int* rows,
+                                 const int* offset, const int* direct,
+                                 void* stream) {
   CornerLevels lv;
-  if (!fill_corner_levels(&lv, num_levels, res, rows, offset, direct))
+  if (!fill_corner_levels(&lv, num_levels, res, rows, offset, direct) ||
+      bad_scenes(num_scenes, table_stride))
     return (int)cudaErrorInvalidValue;
   if (num_points <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
+  const CornerLaunch c{num_points, num_scenes, 0, pos_stride, table_stride};
 #define CORNER_FWD_CASE(F)                                                  \
   case F:                                                                   \
-    launch_fwd<F>(s, pos, table, out, num_points, lv);                      \
+    launch_fwd<F>(s, pos, table, out, c, lv);                               \
     break;
   switch (num_features) {
     CORNER_FWD_CASE(1)
@@ -466,33 +514,39 @@ extern "C" int corner_encode_fwd(const float* pos, const float* table,
   return (int)cudaGetLastError();
 }
 
-// Bytes of the backward's work buffer at a table of total_rows rows.
+// Bytes of the backward's work buffer at a table of total_rows rows, for
+// num_scenes scenes.
 extern "C" long long corner_encode_bwd_work_bytes(long long total_rows,
                                                   int num_features,
-                                                  int num_levels) {
-  return fixed_work_bytes(total_rows * num_features, num_levels * num_features);
+                                                  int num_levels, int num_scenes) {
+  return fixed_work_bytes(total_rows * num_features, num_levels * num_features, num_scenes);
 }
 
-// dtable is written whole (every row, touched or not); work is
+// Scenes, strides and table as in corner_encode_fwd; grad is a contiguous
+// [S, P, L*F], dtable a contiguous [S, L*T, F] and dpos [S, P, 3]. dtable
+// is written whole (every row, touched or not); work is
 // corner_encode_bwd_work_bytes long and 8-byte aligned; dpos is written
 // only when needs_pos_grad is nonzero. With no points dtable is zeroed.
 extern "C" int corner_encode_bwd(const float* pos, const float* table,
                                  const float* grad, float* dtable, float* dpos,
-                                 void* work, int num_points, int num_features,
-                                 int needs_pos_grad, int num_levels,
-                                 const int* res, const int* rows,
-                                 const int* offset, const int* direct,
-                                 void* stream) {
+                                 void* work, int num_points, int num_scenes,
+                                 long long pos_stride, long long table_stride,
+                                 int num_features, int needs_pos_grad,
+                                 int num_levels, const int* res,
+                                 const int* rows, const int* offset,
+                                 const int* direct, void* stream) {
   CornerLevels lv;
-  if (!fill_corner_levels(&lv, num_levels, res, rows, offset, direct))
+  if (!fill_corner_levels(&lv, num_levels, res, rows, offset, direct) ||
+      bad_scenes(num_scenes, table_stride))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (num_points <= 0)
-    return (int)cudaMemsetAsync(dtable, 0, sizeof(float) * table_rows(lv) * num_features, s);
+    return (int)cudaMemsetAsync(
+        dtable, 0, sizeof(float) * table_rows(lv) * num_features * num_scenes, s);
+  const CornerLaunch c{num_points, num_scenes, needs_pos_grad, pos_stride, table_stride};
 #define CORNER_BWD_CASE(F)                                                  \
   case F:                                                                   \
-    launch_bwd<F>(s, pos, table, grad, dtable, dpos, work, num_points,      \
-                  needs_pos_grad, lv);                                      \
+    launch_bwd<F>(s, pos, table, grad, dtable, dpos, work, c, lv);          \
     break;
   switch (num_features) {
     CORNER_BWD_CASE(1)

@@ -20,6 +20,10 @@
 //
 // The caller passes one work buffer, zeroed here: the [entries] int64 sums,
 // then the [width] column maxima as float bits. It is fixed_work_bytes long.
+// With S scenes (the kernels' scene axis) it holds S of each, scene-major:
+// [S, entries] sums, then [S, width] maxima, each scene's taken from its
+// own gradients alone, so a scene's sums and scales do not depend on the
+// other scenes of the launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,8 +32,9 @@
 
 #define FIXED_MAX_BITS 0x7f800000u  // float bits at and above it are inf or NaN
 
-static long long fixed_work_bytes(long long entries, int width) {
-  return entries * (long long)sizeof(unsigned long long) + (long long)width * sizeof(unsigned);
+static long long fixed_work_bytes(long long entries, int width, int num_scenes) {
+  return (long long)num_scenes *
+         (entries * (long long)sizeof(unsigned long long) + (long long)width * sizeof(unsigned));
 }
 
 // Scale of a column whose largest |gradient| has float bits `bits` (0 when
@@ -48,11 +53,14 @@ __device__ __forceinline__ void add_fixed(unsigned long long* acc, float v, doub
 }
 
 // Largest |grad| of each of the `width` columns of a row-major [n / width,
-// width] float array, as float bits (which order as the floats do). The
-// block size and the grid's stride are multiples of width, so a thread keeps
-// to one column and adds one atomic.
+// width] float array, as float bits (which order as the floats do); scene
+// blockIdx.y's array and maxima follow its predecessors'. The block size and
+// the grid's stride are multiples of width, so a thread keeps to one column
+// and adds one atomic.
 static __global__ void column_max_kernel(const float* __restrict__ grad, long long n,
                                          int width, unsigned* __restrict__ colmax) {
+  grad += (long long)blockIdx.y * n;
+  colmax += (long long)blockIdx.y * width;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   unsigned m = 0u;
@@ -60,17 +68,22 @@ static __global__ void column_max_kernel(const float* __restrict__ grad, long lo
   if (m != 0u) atomicMax(colmax + (int)(first % width), m);
 }
 
-// dtable[e] = acc[e] / scale of e's column, level by level (blockIdx.y): a
-// level's rows are row_width floats each, and entry k of a row holds
-// feature k % features.
+// dtable[e] = acc[e] / scale of e's column, level by level (blockIdx.y) and
+// scene by scene (blockIdx.z; each scene's `entries` sums and dTable, and
+// its columns' maxima, follow its predecessors'): a level's rows are
+// row_width floats each, and entry k of a row holds feature k % features.
 template <class Levels>
 static __global__ void fixed_to_float_kernel(const long long* __restrict__ acc,
                                              const unsigned* __restrict__ colmax,
-                                             float* __restrict__ dtable, int num_points,
-                                             int row_width, int features, Levels lv) {
+                                             float* __restrict__ dtable, long long entries,
+                                             int num_points, int row_width, int features,
+                                             Levels lv) {
   __shared__ double s_inv[8];
   __shared__ bool s_bad[8];
   const int l = blockIdx.y;
+  acc += (long long)blockIdx.z * entries;
+  dtable += (long long)blockIdx.z * entries;
+  colmax += (long long)blockIdx.z * lv.num_levels * features;
   if (threadIdx.x < features) {
     const unsigned bits = colmax[l * features + threadIdx.x];
     s_inv[threadIdx.x] = 1.0 / fixed_scale(bits, num_points);  // a power of two: exact
@@ -86,28 +99,31 @@ static __global__ void fixed_to_float_kernel(const long long* __restrict__ acc,
   }
 }
 
-// Zeroes the work buffer and writes the column maxima of grad [P, width].
+// Zeroes the work buffer and writes the column maxima of grad [S, P, width].
 static void fixed_begin(cudaStream_t s, void* work, long long entries, const float* grad,
-                        int num_points, int width) {
-  cudaMemsetAsync(work, 0, (size_t)fixed_work_bytes(entries, width), s);
-  unsigned* colmax = reinterpret_cast<unsigned*>(reinterpret_cast<unsigned long long*>(work) + entries);
+                        int num_points, int width, int num_scenes) {
+  cudaMemsetAsync(work, 0, (size_t)fixed_work_bytes(entries, width, num_scenes), s);
+  unsigned* colmax = reinterpret_cast<unsigned*>(
+      reinterpret_cast<unsigned long long*>(work) + entries * num_scenes);
   const int threads = width * (width < 256 ? 256 / width : 1);
   const long long n = (long long)num_points * width;
   const long long blocks = (n + threads - 1) / threads;
-  column_max_kernel<<<(unsigned)(blocks < 1024 ? blocks : 1024), threads, 0, s>>>(
-      grad, n, width, colmax);
+  const dim3 grid((unsigned)(blocks < 1024 ? blocks : 1024), (unsigned)num_scenes);
+  column_max_kernel<<<grid, threads, 0, s>>>(grad, n, width, colmax);
 }
 
-// Writes dtable [entries] from the sums in the work buffer.
+// Writes dtable [S, entries] from the sums in the work buffer.
 template <class Levels>
 static void fixed_end(cudaStream_t s, const void* work, long long entries, float* dtable,
-                      int num_points, int row_width, int features, const Levels& lv) {
+                      int num_points, int row_width, int features, const Levels& lv,
+                      int num_scenes) {
   const long long* acc = reinterpret_cast<const long long*>(work);
-  const unsigned* colmax = reinterpret_cast<const unsigned*>(acc + entries);
+  const unsigned* colmax = reinterpret_cast<const unsigned*>(acc + entries * num_scenes);
   int most = 0;
   for (int l = 0; l < lv.num_levels; ++l) most = lv.rows[l] > most ? lv.rows[l] : most;
   const long long blocks = ((long long)most * row_width + 255) / 256;
-  const dim3 grid((unsigned)(blocks < 512 ? blocks : 512), (unsigned)lv.num_levels);
-  fixed_to_float_kernel<Levels><<<grid, 256, 0, s>>>(acc, colmax, dtable, num_points,
+  const dim3 grid((unsigned)(blocks < 512 ? blocks : 512), (unsigned)lv.num_levels,
+                  (unsigned)num_scenes);
+  fixed_to_float_kernel<Levels><<<grid, 256, 0, s>>>(acc, colmax, dtable, entries, num_points,
                                                      row_width, features, lv);
 }

@@ -17,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from ..bridge import tree_leaves
+from ..bridge import tree_leaves, tree_map
 from ..cameras.camera_opt import exp_map_so3xr3, init_camera_opt
 from ..cameras.cameras import Cameras, frustum_coverage, generate_image_rays, generate_rays
 from ..configs import OptimizerConfig, TrainConfig
@@ -349,36 +349,78 @@ def compute_loss(state: TrainState, data: DeviceDataset, config: TrainConfig, dr
     return total, losses, metrics_dict(outputs, rgb_gt)
 
 
+def optimizer_step(state: TrainState, config: TrainConfig) -> None:
+    """Step ``state.optimizer`` on the gradients in the parameters' ``.grad``
+    at the schedules' rates for ``state.step``, then count the step."""
+    opts = _group_configs(config)
+    for group in state.optimizer.param_groups:
+        group["lr"] = learning_rate(opts[group["name"]], state.step, config.max_iters)
+        for p in group["params"]:
+            if p.grad is None:  # gated proposal nets: the optimizer still steps on zeros
+                p.grad = torch.zeros_like(p)
+    state.optimizer.step()
+    state.step += 1
+
+
+def step_metrics(metrics: dict, losses: dict, total: torch.Tensor) -> dict:
+    """A step's metrics with its losses and total, detached."""
+    out = {**metrics, **{k: v.detach() for k, v in losses.items()}}
+    out["total_loss"] = total.detach()
+    return out
+
+
+def camera_opt_metrics(camera_opt: torch.Tensor, dims=None) -> dict:
+    """Norms of the camera-opt translations and rotations (over ``dims``,
+    every axis when None)."""
+    t = camera_opt.detach()
+    return {"camera_opt_translation": torch.linalg.vector_norm(t[..., 3:], dim=dims),
+            "camera_opt_rotation": torch.linalg.vector_norm(t[..., :3], dim=dims)}
+
+
+def _mesh_metrics(metrics: dict, mesh) -> dict:
+    """The metrics averaged over the ranks, the PSNR formed from the
+    averaged RGB loss (an average of the ranks' PSNRs is not the batch's)."""
+    from ..parallel.mesh import average
+
+    names = [k for k in metrics if k != "psnr"]
+    out = dict(zip(names, average([metrics[k] for k in names], mesh)))
+    out["psnr"] = -10.0 * torch.log10(torch.clamp_min(out["rgb_loss"], 1e-10))
+    return out
+
+
 def train_step(
     state: TrainState,
     data: DeviceDataset,
     config: TrainConfig,
     generator: torch.Generator | None = None,
     draws: StepDraws | None = None,
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """One step: draws (from ``generator`` unless given), loss, backward,
     the optimizer. Updates ``state`` in place and returns the step's metrics as
-    device scalars (reading them synchronises)."""
+    device scalars (reading them synchronises).
+
+    With ``mesh`` (``parallel/mesh.py:DataMesh``) the draws are the global
+    step's, every rank's alike; this rank keeps its shard of them, and the
+    gradients and metrics are averaged over the ranks (the twin is
+    ``make_train_step(config, mesh)``)."""
     if draws is None:
         draws = draw_step(config, data, generator)
+    if mesh is not None:
+        from ..parallel.mesh import average_gradients, shard_draws
+
+        draws = shard_draws(draws, mesh)
     total, losses, metrics = compute_loss(state, data, config, draws)
-    opt = state.optimizer
-    opt.zero_grad(set_to_none=True)
+    state.optimizer.zero_grad(set_to_none=True)
     total.backward()
-    opts = _group_configs(config)
-    for group in opt.param_groups:
-        group["lr"] = learning_rate(opts[group["name"]], state.step, config.max_iters)
-        for p in group["params"]:
-            if p.grad is None:  # gated proposal nets: the optimizer still steps on zeros
-                p.grad = torch.zeros_like(p)
-    opt.step()
-    state.step += 1
-    metrics = {**metrics, **{k: v.detach() for k, v in losses.items()}}
-    metrics["total_loss"] = total.detach()
+    if mesh is not None:
+        average_gradients(state.params, mesh)
+    optimizer_step(state, config)
+    metrics = step_metrics(metrics, losses, total)
+    if mesh is not None:
+        metrics = _mesh_metrics(metrics, mesh)
     if config.use_camera_opt:
-        t = state.params["camera_opt"].detach()
-        metrics["camera_opt_translation"] = torch.linalg.vector_norm(t[..., 3:])
-        metrics["camera_opt_rotation"] = torch.linalg.vector_norm(t[..., :3])
+        metrics.update(camera_opt_metrics(state.params["camera_opt"]))
     return metrics
 
 
@@ -391,23 +433,39 @@ _PANELS = ("rgb", "depth", "accumulation", "semantics", "semantics_colormap")
 
 @torch.no_grad()
 def render_camera(
-    params: dict, cameras: Cameras, camera_index: int, config: TrainConfig
+    params: dict, cameras: Cameras, camera_index: int, config: TrainConfig,
+    devices=None,
 ) -> dict[str, torch.Tensor]:
-    """Render every output panel of one camera ([H,W,...] tensors) in
-    chunks of ``eval_rays_per_chunk`` rays, eval mode."""
+    """Render every output panel of one camera ([H,W,...] tensors, on the
+    parameters' device) in chunks of ``eval_rays_per_chunk`` rays, eval
+    mode.
+
+    ``devices`` (a list; default the parameters' device): the image's rays
+    are split into contiguous shards, one a device; each device renders its
+    shard in chunks with its own copy of the parameters, and the shards are
+    gathered in order (the twin's ``_render_sharded_fn``: the ray axis
+    sharded over the mesh)."""
     h = int(cameras.height[camera_index])
     w = int(cameras.width[camera_index])
     bundle = generate_image_rays(cameras, camera_index, h, w)
-    chunk = config.eval_rays_per_chunk
+    home = bundle.origins.device
+    devices = devices or [home]
+    shard = -(-(h * w) // len(devices))
     parts = {k: [] for k in _PANELS}
-    for start in range(0, h * w, chunk):
-        out = forward_train(
-            params["model"], bundle[start : start + chunk], config.model,
-            uniforms=None, step=1 << 30, train=False,
-        )
-        for k in _PANELS:
-            parts[k].append(out[k])
-    return {k: torch.cat(v).reshape(h, w, *v[0].shape[1:]) for k, v in parts.items()}
+    for i, dev in enumerate(devices):  # launches on distinct cards overlap
+        rays = bundle[i * shard : (i + 1) * shard].to(dev)
+        model = tree_map(params["model"], lambda t, d=dev: t.to(d))  # a copy a device
+        for start in range(0, rays.origins.shape[0], config.eval_rays_per_chunk):
+            out = forward_train(
+                model, rays[start : start + config.eval_rays_per_chunk], config.model,
+                uniforms=None, step=1 << 30, train=False,
+            )
+            for k in _PANELS:
+                parts[k].append(out[k])
+    return {
+        k: torch.cat([t.to(home) for t in v]).reshape(h, w, *v[0].shape[1:])
+        for k, v in parts.items()
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -422,15 +480,17 @@ def _sync(device: torch.device):
 
 def evaluate_image(
     params: dict, data: DeviceDataset, camera_index: int, config: TrainConfig,
-    lpips_weights_path=None,
+    lpips_weights_path=None, devices=None,
 ) -> tuple[dict, dict]:
     """Render one eval camera -> ({psnr, ssim, iou, iou_reference_quirk,
     num_rays_per_sec, fps} as floats, the rendered panels). LPIPS is
-    reported too when backbone weights are given (``utils/lpips.py``)."""
+    reported too when backbone weights are given (``utils/lpips.py``).
+    ``devices``: as in ``render_camera``."""
     dev = data.images.device
-    _sync(dev)
+    for d in {dev, *map(torch.device, devices or ())}:
+        _sync(d)
     t0 = time.perf_counter()
-    out = render_camera(params, data.cameras, camera_index, config)
+    out = render_camera(params, data.cameras, camera_index, config, devices)
     _sync(dev)
     dt = time.perf_counter() - t0
     h, w = out["rgb"].shape[:2]
@@ -451,9 +511,10 @@ def evaluate_image(
 
 
 def evaluate_all(params: dict, data: DeviceDataset, indices, config: TrainConfig,
-                 lpips_weights_path=None) -> dict:
-    """Eval metrics and throughput averaged over the cameras ``indices``."""
-    all_stats = [evaluate_image(params, data, int(ci), config, lpips_weights_path)[0]
+                 lpips_weights_path=None, devices=None) -> dict:
+    """Eval metrics and throughput averaged over the cameras ``indices``;
+    ``devices``: as in ``render_camera``."""
+    all_stats = [evaluate_image(params, data, int(ci), config, lpips_weights_path, devices)[0]
                  for ci in indices]
     return {k: float(np.mean([s[k] for s in all_stats])) for k in all_stats[0]}
 
@@ -468,6 +529,7 @@ def train_loop(
     checkpoint_dir=None,
     callbacks=(),
     timings: dict | None = None,
+    mesh=None,
 ) -> TrainState:
     """Train from ``state.step`` (a fresh state when None) to
     ``config.max_iters``, one ``train_step`` at a time.
@@ -491,12 +553,29 @@ def train_loop(
     All draws come from ``generator`` (seeded with ``config.seed`` when
     None), which also initialises a fresh state. ``timings`` (optional) is
     filled with the wall seconds of each section: train_s, eval_s, save_s.
+
+    With ``mesh`` (``parallel/mesh.py:DataMesh``, the twin's
+    ``train_loop(mesh=)``) every rank runs this loop on its own device with
+    an identically seeded generator: the initial parameters must be equal
+    on every rank (checked), each step trains on the rank's shard of the
+    global draws with the gradients averaged, and only rank 0 evaluates,
+    writes to ``writer`` and checkpoints. No signal handler is installed
+    then: a rank that stopped alone would leave the others waiting in the
+    next average, so a preempted data-parallel run resumes from its last
+    periodic checkpoint.
     """
     dev = data.images.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(config.seed)
     if state is None:
         state = init_train_state(config, data.cameras.num_cameras, dev, generator=generator)
+    if mesh is not None:
+        from ..parallel.mesh import check_batch, check_replicated
+
+        check_batch(config, mesh)
+        check_replicated(state.params, mesh)
+        if not mesh.lead:
+            writer = checkpoint_dir = eval_indices = None
     if timings is None:
         timings = {}
     for k in ("train_s", "eval_s", "save_s"):
@@ -507,7 +586,8 @@ def train_loop(
 
     stop = threading.Event()
     prev_handlers = {}
-    if checkpoint_dir is not None and threading.current_thread() is threading.main_thread():
+    if checkpoint_dir is not None and mesh is None \
+            and threading.current_thread() is threading.main_thread():
         for sig in (signal.SIGTERM, signal.SIGINT):
             prev_handlers[sig] = signal.signal(sig, lambda signum, frame: stop.set())
     do_eval = eval_indices is not None and len(eval_indices) > 0
@@ -523,7 +603,7 @@ def train_loop(
         it = state.step
         t_train = time.perf_counter()
         while it < config.max_iters:
-            metrics = train_step(state, data, config, generator)
+            metrics = train_step(state, data, config, generator, mesh=mesh)
             it = state.step
             if writer is not None and every(config.steps_per_log, it):
                 names = list(metrics)

@@ -17,7 +17,11 @@ fruit points as three ``.ply`` clouds. Twin of
     lengths are calibrated in the space this gives.
 
 Each batch is masked on the device, and only the surviving rows cross to
-the host, in one copy a batch. The mask keeps every surviving point: the
+the host, in one copy a batch. With ``devices`` each batch's rays are split
+over the devices by the twin's stride permutation (``sample_volume(mesh=)``,
+``_export_batch_sharded``): every device queries and masks its shard with
+its own copy of the parameters, and the shards' rows are concatenated in
+shard order. The mask keeps every surviving point: the
 JAX twin's fixed-capacity compaction, which drops points past
 ``compaction_fraction`` of a batch, is a TPU formulation and is not ported,
 so ``overflowed`` is always 0.
@@ -30,6 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..bridge import tree_map
 from ..core.rays import RayBundle
 from ..models.fruit_model import FruitModelConfig, forward_export
 from .ply import write_ply
@@ -86,11 +91,13 @@ def export_masks(logit, prob, density, thresholds) -> dict[str, torch.Tensor]:
     }
 
 
-def rays_per_batch(export_config: ExportConfig) -> int:
-    """Rays a batch: the configured batch, capped so that a batch holds at
-    most ``MAX_PROBES`` probes (at least 1024 rays), as the JAX twin."""
+def rays_per_batch(export_config: ExportConfig, num_shards: int = 1) -> int:
+    """Rays a batch: the configured batch, capped so that a shard holds at
+    most ``MAX_PROBES`` probes (at least 1024 rays), then cut to a multiple
+    of the shards, as the JAX twin."""
     n = export_config.num_points_per_side
-    return min(export_config.num_rays_per_batch, max(1024, MAX_PROBES // n))
+    batch = min(export_config.num_rays_per_batch, max(1024, MAX_PROBES * num_shards // n))
+    return max(num_shards, batch - batch % num_shards)
 
 
 def probe_bundle(origins: torch.Tensor, direction: torch.Tensor, far: float) -> RayBundle:
@@ -106,6 +113,23 @@ def probe_bundle(origins: torch.Tensor, direction: torch.Tensor, far: float) -> 
     )
 
 
+def _surviving_rows(out: dict, thresholds) -> torch.Tensor:
+    """A batch's ``forward_export`` outputs masked on their device: the
+    surviving rows [M, 7 + 3] (position, rgb, sigmoid, the three masks)."""
+    prob = out["semantics_prob"].reshape(-1)
+    masks = export_masks(
+        out["semantics"].reshape(-1), prob, out["density"].reshape(-1), thresholds
+    )
+    bits = torch.stack([masks[k] for k in CLOUDS], dim=-1)  # [P, 3]
+    keep = torch.nonzero(bits.any(dim=-1)).squeeze(1)
+    return torch.cat([
+        out["positions"].reshape(-1, 3)[keep],
+        out["rgb"].reshape(-1, 3)[keep],
+        prob[keep, None],
+        bits[keep].float(),
+    ], dim=-1)
+
+
 def sample_volume(
     params,
     model_config: FruitModelConfig,
@@ -114,41 +138,42 @@ def sample_volume(
     output_dir,
     scene_aabb=None,  # [2,3] field-normalization box; defaults to +-1
     progress: bool = True,
+    devices=None,
 ) -> dict:
     """Stream the N^3 probe grid through the field (``params``: the model's
     parameters, on the device to run on) and write the three ``.ply``
-    clouds. Returns {name: {"points", "colors", "path", "overflowed"}}."""
+    clouds. Returns {name: {"points", "colors", "path", "overflowed"}}.
+
+    With ``devices`` (a list) shard i of every batch, rays i, i + G, ...
+    of its G shards (the twin's ``shard_perm``, which gives every shard a
+    uniform subsample of the face), runs on ``devices[i]``."""
     dev = params["field"]["base_mlp"]["w0"].device
+    shards = [dev] if devices is None else [torch.device(d) for d in devices]
     n = export_config.num_points_per_side
     origins_np, direction_np, far = orthographic_ray_grid(export_config.aabb, n)
-    batch = rays_per_batch(export_config)
+    batch = rays_per_batch(export_config, len(shards))
     if scene_aabb is None:
         scene_aabb = np.array([[-1.0] * 3, [1.0] * 3], np.float32)
-    aabb = torch.as_tensor(np.asarray(scene_aabb, np.float32), device=dev)
-    origins = torch.from_numpy(origins_np).to(dev)
-    direction = torch.from_numpy(direction_np).to(dev)
+    aabb = np.asarray(scene_aabb, np.float32)
     thresholds = (export_config.semantic_logit_threshold, export_config.density_threshold,
                   export_config.colormap_prob_threshold)
+    # each shard's device: the parameters, the rays, the direction and box
+    place = [(params if d == dev else tree_map(params, lambda t, d=d: t.to(d)),
+              torch.from_numpy(origins_np).to(d), torch.from_numpy(direction_np).to(d),
+              torch.as_tensor(aabb, device=d)) for d in shards]
+    g = len(shards)
 
-    parts = []  # per batch: surviving rows [M, 7 + 3] on the host
-    total = origins.shape[0]
+    parts = []  # per batch and shard: surviving rows [M, 7 + 3] on the host
+    total = origins_np.shape[0]
     with torch.inference_mode():
         for start in range(0, total, batch):
-            bundle = probe_bundle(origins[start : start + batch], direction, far)
-            out = forward_export(params, bundle, model_config, n, aabb)
-            prob = out["semantics_prob"].reshape(-1)
-            masks = export_masks(
-                out["semantics"].reshape(-1), prob, out["density"].reshape(-1), thresholds
-            )
-            bits = torch.stack([masks[k] for k in CLOUDS], dim=-1)  # [P, 3]
-            keep = torch.nonzero(bits.any(dim=-1)).squeeze(1)
-            rows = torch.cat([
-                out["positions"].reshape(-1, 3)[keep],
-                out["rgb"].reshape(-1, 3)[keep],
-                prob[keep, None],
-                bits[keep].float(),
-            ], dim=-1)
-            parts.append(rows.cpu().numpy())  # the batch's one copy to the host
+            # every shard's forward is queued before the first mask waits on
+            # its device, so that shards on distinct cards overlap
+            outs = [forward_export(p, probe_bundle(o[start : start + batch][i::g], d, far),
+                                   model_config, n, a)
+                    for i, (p, o, d, a) in enumerate(place)]
+            # each shard's one copy to the host
+            parts.extend(_surviving_rows(out, thresholds).cpu().numpy() for out in outs)
             if progress:
                 done = min(start + batch, total)
                 print(f"export: {done}/{total} rays ({done * n / 1e6:.1f}M probes)", flush=True)

@@ -23,12 +23,20 @@ nvcc for sm_90a at first use into
 ``fruitnerf_tpu_torch/_build/<source hash>/`` and loaded with ctypes. The
 backward kernels sum dTable in 64-bit fixed point (``csrc/fixed_sum.cuh``),
 so a backward repeats bitwise.
+
+The kernels take a leading scene axis, the counterpart of ``jax.vmap`` over
+the Pallas calls: under ``torch.func.vmap`` (the multi-scene step,
+``parallel/multi_scene.py``) the autograd Functions' ``vmap`` rules launch
+each kernel once for all S scenes, and scene s of such a launch equals a
+launch of scene s alone, bitwise. The plain versions batch under
+``torch.func.vmap`` as they are.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -52,16 +60,24 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Launch counts of the kernels, raised by one where each is launched.
+# Launch counts of the kernels, raised by one where each is launched, and
+# the scenes those launches took (S for a scene-batched launch, else 1).
 LAUNCHES = {
     "cell_encode_fwd": 0, "cell_encode_bwd": 0,
     "corner_encode_fwd": 0, "corner_encode_bwd": 0,
 }
+SCENES = dict(LAUNCHES)
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        SCENES[k] = 0
+
+
+def _count(name: str, scenes: int) -> None:
+    LAUNCHES[name] += 1
+    SCENES[name] += scenes
 
 
 def _pow2ceil(n: int) -> int:
@@ -297,14 +313,17 @@ def build_library(sources, build_dir: Path) -> tuple[ctypes.CDLL, BuildInfo]:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     arr = ctypes.POINTER(ctypes.c_int)
     signatures = {
-        "cell_encode_fwd": ([ptr, ptr, ptr, i32, i32, arr, arr, arr, arr, ptr], i32),
-        "cell_encode_bwd": ([ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, arr, arr, arr, arr,
-                             ptr], i32),
-        "cell_encode_bwd_work_bytes": ([i64, i32], i64),
-        "corner_encode_fwd": ([ptr, ptr, ptr, i32, i32, i32, arr, arr, arr, arr, ptr], i32),
-        "corner_encode_bwd": ([ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, arr, arr, arr,
-                               arr, ptr], i32),
-        "corner_encode_bwd_work_bytes": ([i64, i32, i32], i64),
+        # (pointers..., points, scenes, position stride, table stride, ...)
+        "cell_encode_fwd": ([ptr, ptr, ptr, i32, i32, i64, i64, i32, arr, arr, arr, arr, ptr],
+                            i32),
+        "cell_encode_bwd": ([ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i64, i32, i32, arr,
+                             arr, arr, arr, ptr], i32),
+        "cell_encode_bwd_work_bytes": ([i64, i32, i32], i64),
+        "corner_encode_fwd": ([ptr, ptr, ptr, i32, i32, i64, i64, i32, i32, arr, arr, arr, arr,
+                               ptr], i32),
+        "corner_encode_bwd": ([ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i64, i32, i32, i32,
+                               arr, arr, arr, arr, ptr], i32),
+        "corner_encode_bwd_work_bytes": ([i64, i32, i32, i32], i64),
     }
     for name, (argtypes, restype) in signatures.items():
         if hasattr(lib, name):  # a library of one source has that source's functions
@@ -345,20 +364,48 @@ def _level_arrays(layout: CellLayout):
     )
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device, align: int = 4):
-    """The cell kernels read the table as float4 (16-byte aligned); the
-    corner kernels read table rows as float2 or float4 where F is 2, 4 or
-    8."""
+def _operand(name: str, t: torch.Tensor, inner: tuple, device: torch.device,
+             align: int = 4) -> tuple[int | None, int]:
+    """Check a kernel operand of shape ``inner`` or ``[S, *inner]`` ->
+    (S, or None without a scene axis; the scene stride in floats). A
+    batched operand is contiguous; an operand without the scene axis is
+    shared by every scene (stride 0). The cell kernels read the table as
+    float4 (16-byte aligned, every scene's too); the corner kernels read table rows as float2
+    or float4 where F is 2, 4 or 8."""
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    batched = t.dim() == len(inner) + 1
+    if tuple(t.shape[batched:]) != inner or t.dim() not in (len(inner), len(inner) + 1):
+        raise ValueError(f"{name}: expected shape {inner} or [S, *{inner}], got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if t.data_ptr() % align:
-        raise ValueError(f"{name}: expected a {align}-byte aligned tensor")
+    stride = math.prod(inner) if batched else 0
+    if t.data_ptr() % align or (stride * 4) % align:
+        raise ValueError(f"{name}: expected a {align}-byte aligned tensor (every scene)")
+    return (t.shape[0] if batched else None), stride
+
+
+def _scenes(*counts) -> int | None:
+    """The launch's scene count from its operands' (None: no scene axis)."""
+    given = {c for c in counts if c is not None}
+    if len(given) > 1:
+        raise ValueError(f"operands of {sorted(given)} scenes")
+    if given and not 1 <= min(given) <= 65535:
+        raise ValueError(f"the kernels take 1..65535 scenes, got {min(given)}")
+    return given.pop() if given else None
+
+
+def _grad_operand(grad: torch.Tensor, scenes: int | None, shape: tuple, device) -> torch.Tensor:
+    """The backward's output gradient, contiguous, as [S, *shape] (or
+    ``shape`` without a scene axis)."""
+    want = shape if scenes is None else (scenes, *shape)
+    if tuple(grad.shape) != want:
+        raise ValueError(f"grad: expected shape {want}, got {tuple(grad.shape)}")
+    grad = grad.contiguous()
+    _operand("grad", grad, shape, device)
+    return grad
 
 
 def _work(nbytes: int, device: torch.device) -> torch.Tensor:
@@ -372,22 +419,36 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def _out(scenes: int | None, shape: tuple, device) -> torch.Tensor:
+    return torch.empty(shape if scenes is None else (scenes, *shape), dtype=torch.float32,
+                       device=device)
+
+
+def _positions_rows(positions: torch.Tensor) -> int:
+    if positions.dim() not in (2, 3):
+        raise ValueError(f"positions: expected [P, 3] or [S, P, 3], got {tuple(positions.shape)}")
+    return positions.shape[-2]
+
+
 def cell_encode_fwd_cuda(
     table: torch.Tensor, positions: torch.Tensor, layout: CellLayout
 ) -> torch.Tensor:
-    """Forward kernel: -> [P, 2L] float32."""
+    """Forward kernel (K1): table [sum T_l, 16], positions [P, 3] ->
+    [P, 2L] float32. Either may lead with a scene axis S (the other is
+    shared by every scene): one launch -> [S, P, 2L]."""
     dev = table.device
-    p = positions.shape[0]
-    _check("table", table, (layout.total_rows, 16), dev, align=16)
-    _check("positions", positions, (p, 3), dev)
-    out = torch.empty((p, 2 * layout.num_levels), dtype=torch.float32, device=dev)
+    p = _positions_rows(positions)
+    s_table, t_stride = _operand("table", table, (layout.total_rows, 16), dev, align=16)
+    s_pos, p_stride = _operand("positions", positions, (p, 3), dev)
+    scenes = _scenes(s_table, s_pos)
+    out = _out(scenes, (p, 2 * layout.num_levels), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().cell_encode_fwd(
-        positions.data_ptr(), table.data_ptr(), out.data_ptr(), p,
-        layout.num_levels, *_level_arrays(layout), stream,
+        positions.data_ptr(), table.data_ptr(), out.data_ptr(), p, scenes or 1, p_stride,
+        t_stride, layout.num_levels, *_level_arrays(layout), stream,
     )
     _raise_on(err, "cell_encode_fwd")
-    LAUNCHES["cell_encode_fwd"] += 1
+    _count("cell_encode_fwd", scenes or 1)
     return out
 
 
@@ -395,42 +456,88 @@ def cell_encode_bwd_cuda(
     table: torch.Tensor, positions: torch.Tensor, grad: torch.Tensor,
     layout: CellLayout, needs_pos_grad: bool,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Backward kernel: -> (dTable [sum T_l, 16], dPositions [P, 3] or None)."""
+    """Backward kernel (K2): -> (dTable [sum T_l, 16], dPositions [P, 3] or
+    None). With a scene axis on any operand, one launch -> ([S, sum T_l,
+    16], [S, P, 3] or None), each scene's own gradients."""
     dev = table.device
-    p = positions.shape[0]
-    _check("table", table, (layout.total_rows, 16), dev, align=16)
-    _check("positions", positions, (p, 3), dev)
-    _check("grad", grad, (p, 2 * layout.num_levels), dev)
-    dtable = torch.empty_like(table)
-    dpos = torch.empty_like(positions) if needs_pos_grad else None
-    work = _work(_lib().cell_encode_bwd_work_bytes(layout.total_rows, layout.num_levels), dev)
+    p = _positions_rows(positions)
+    s_table, t_stride = _operand("table", table, (layout.total_rows, 16), dev, align=16)
+    s_pos, p_stride = _operand("positions", positions, (p, 3), dev)
+    s_grad = grad.shape[0] if grad.dim() == 3 else None
+    scenes = _scenes(s_table, s_pos, s_grad)
+    grad = _grad_operand(grad, scenes, (p, 2 * layout.num_levels), dev)
+    dtable = _out(scenes, (layout.total_rows, 16), dev)
+    dpos = _out(scenes, (p, 3), dev) if needs_pos_grad else None
+    work = _work(_lib().cell_encode_bwd_work_bytes(
+        layout.total_rows, layout.num_levels, scenes or 1), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().cell_encode_bwd(
         positions.data_ptr(), table.data_ptr(), grad.data_ptr(),
         dtable.data_ptr(), dpos.data_ptr() if needs_pos_grad else None,
-        work.data_ptr(), p, int(needs_pos_grad), layout.num_levels,
-        *_level_arrays(layout), stream,
+        work.data_ptr(), p, scenes or 1, p_stride, t_stride, int(needs_pos_grad),
+        layout.num_levels, *_level_arrays(layout), stream,
     )
     _raise_on(err, "cell_encode_bwd")
-    LAUNCHES["cell_encode_bwd"] += 1
+    _count("cell_encode_bwd", scenes or 1)
     return dtable, dpos
+
+
+def _scene_first(in_dims, *tensors) -> list:
+    """``torch.func.vmap`` operands with their scene axis first, contiguous;
+    an unbatched one (dim None) stays as it is, shared by every scene."""
+    return [t if d is None else t.movedim(d, 0).contiguous() for t, d in zip(tensors, in_dims)]
+
+
+def _pos_grad_dims(dpos) -> int | None:
+    return None if dpos is None else 0
+
+
+# The autograd Functions take the setup_context form, so that they run under
+# torch.func: ``vmap(grad(...))`` calls each one's ``vmap`` rule, which
+# launches the kernel once for every scene. A backward launches its kernel
+# through a second Function, whose own ``vmap`` rule does the same under a
+# vmap (a ctypes call cannot take the batched tensors a vmapped backward
+# sees). The second Function is not differentiable again.
+
+
+class _CellEncodeBwdCUDA(torch.autograd.Function):
+    @staticmethod
+    def forward(table, positions, grad, layout, needs_pos_grad):
+        return cell_encode_bwd_cuda(table, positions, grad.contiguous(), layout, needs_pos_grad)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, table, positions, grad, layout, needs_pos_grad):
+        table, positions, grad = _scene_first(in_dims[:3], table, positions, grad)
+        dtable, dpos = cell_encode_bwd_cuda(table, positions, grad, layout, needs_pos_grad)
+        return (dtable, dpos), (0, _pos_grad_dims(dpos))
 
 
 class _CellEncodeCUDA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, positions, layout):
+    def forward(table, positions, layout):
+        return cell_encode_fwd_cuda(table, positions, layout)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, positions, layout = inputs
         ctx.layout = layout
         ctx.save_for_backward(table, positions)
-        return cell_encode_fwd_cuda(table, positions, layout)
 
     @staticmethod
     def backward(ctx, grad):
         table, positions = ctx.saved_tensors
-        needs_pos = ctx.needs_input_grad[1]
-        dtable, dpos = cell_encode_bwd_cuda(
-            table, positions, grad.contiguous(), ctx.layout, needs_pos
-        )
+        dtable, dpos = _CellEncodeBwdCUDA.apply(
+            table, positions, grad, ctx.layout, ctx.needs_input_grad[1])
         return (dtable if ctx.needs_input_grad[0] else None), dpos, None
+
+    @staticmethod
+    def vmap(info, in_dims, table, positions, layout):
+        table, positions = _scene_first(in_dims[:2], table, positions)
+        return cell_encode_fwd_cuda(table, positions, layout), 0
 
 
 def _device_type(table: torch.Tensor, positions: torch.Tensor, what: str) -> str:
@@ -464,20 +571,23 @@ def _check_features(features: int):
 def corner_encode_fwd_cuda(
     table: torch.Tensor, positions: torch.Tensor, layout: CellLayout, features: int
 ) -> torch.Tensor:
-    """Forward kernel (K3): -> [P, L*F] float32."""
+    """Forward kernel (K3): table [L*T, F], positions [P, 3] -> [P, L*F]
+    float32. Either may lead with a scene axis S (the other is shared by
+    every scene): one launch -> [S, P, L*F]."""
     _check_features(features)
     dev = table.device
-    p = positions.shape[0]
-    _check("table", table, (layout.total_rows, features), dev, align=16)
-    _check("positions", positions, (p, 3), dev)
-    out = torch.empty((p, features * layout.num_levels), dtype=torch.float32, device=dev)
+    p = _positions_rows(positions)
+    s_table, t_stride = _operand("table", table, (layout.total_rows, features), dev, align=16)
+    s_pos, p_stride = _operand("positions", positions, (p, 3), dev)
+    scenes = _scenes(s_table, s_pos)
+    out = _out(scenes, (p, features * layout.num_levels), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().corner_encode_fwd(
-        positions.data_ptr(), table.data_ptr(), out.data_ptr(), p, features,
-        layout.num_levels, *_level_arrays(layout), stream,
+        positions.data_ptr(), table.data_ptr(), out.data_ptr(), p, scenes or 1, p_stride,
+        t_stride, features, layout.num_levels, *_level_arrays(layout), stream,
     )
     _raise_on(err, "corner_encode_fwd")
-    LAUNCHES["corner_encode_fwd"] += 1
+    _count("corner_encode_fwd", scenes or 1)
     return out
 
 
@@ -485,44 +595,73 @@ def corner_encode_bwd_cuda(
     table: torch.Tensor, positions: torch.Tensor, grad: torch.Tensor,
     layout: CellLayout, features: int, needs_pos_grad: bool,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Backward kernel (K4): -> (dTable [L*T, F], dPositions [P, 3] or None)."""
+    """Backward kernel (K4): -> (dTable [L*T, F], dPositions [P, 3] or
+    None). With a scene axis on any operand, one launch -> ([S, L*T, F],
+    [S, P, 3] or None), each scene's own gradients."""
     _check_features(features)
     dev = table.device
-    p = positions.shape[0]
-    _check("table", table, (layout.total_rows, features), dev, align=16)
-    _check("positions", positions, (p, 3), dev)
-    _check("grad", grad, (p, features * layout.num_levels), dev)
-    dtable = torch.empty_like(table)
-    dpos = torch.empty_like(positions) if needs_pos_grad else None
+    p = _positions_rows(positions)
+    s_table, t_stride = _operand("table", table, (layout.total_rows, features), dev, align=16)
+    s_pos, p_stride = _operand("positions", positions, (p, 3), dev)
+    s_grad = grad.shape[0] if grad.dim() == 3 else None
+    scenes = _scenes(s_table, s_pos, s_grad)
+    grad = _grad_operand(grad, scenes, (p, features * layout.num_levels), dev)
+    dtable = _out(scenes, (layout.total_rows, features), dev)
+    dpos = _out(scenes, (p, 3), dev) if needs_pos_grad else None
     work = _work(_lib().corner_encode_bwd_work_bytes(
-        layout.total_rows, features, layout.num_levels), dev)
+        layout.total_rows, features, layout.num_levels, scenes or 1), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().corner_encode_bwd(
         positions.data_ptr(), table.data_ptr(), grad.data_ptr(),
         dtable.data_ptr(), dpos.data_ptr() if needs_pos_grad else None,
-        work.data_ptr(), p, features, int(needs_pos_grad), layout.num_levels,
-        *_level_arrays(layout), stream,
+        work.data_ptr(), p, scenes or 1, p_stride, t_stride, features, int(needs_pos_grad),
+        layout.num_levels, *_level_arrays(layout), stream,
     )
     _raise_on(err, "corner_encode_bwd")
-    LAUNCHES["corner_encode_bwd"] += 1
+    _count("corner_encode_bwd", scenes or 1)
     return dtable, dpos
+
+
+class _CornerEncodeBwdCUDA(torch.autograd.Function):
+    @staticmethod
+    def forward(table, positions, grad, layout, features, needs_pos_grad):
+        return corner_encode_bwd_cuda(
+            table, positions, grad.contiguous(), layout, features, needs_pos_grad)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, table, positions, grad, layout, features, needs_pos_grad):
+        table, positions, grad = _scene_first(in_dims[:3], table, positions, grad)
+        dtable, dpos = corner_encode_bwd_cuda(
+            table, positions, grad, layout, features, needs_pos_grad)
+        return (dtable, dpos), (0, _pos_grad_dims(dpos))
 
 
 class _CornerEncodeCUDA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, positions, layout, features):
+    def forward(table, positions, layout, features):
+        return corner_encode_fwd_cuda(table, positions, layout, features)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, positions, layout, features = inputs
         ctx.layout, ctx.features = layout, features
         ctx.save_for_backward(table, positions)
-        return corner_encode_fwd_cuda(table, positions, layout, features)
 
     @staticmethod
     def backward(ctx, grad):
         table, positions = ctx.saved_tensors
-        dtable, dpos = corner_encode_bwd_cuda(
-            table, positions, grad.contiguous(), ctx.layout, ctx.features,
-            ctx.needs_input_grad[1],
-        )
+        dtable, dpos = _CornerEncodeBwdCUDA.apply(
+            table, positions, grad, ctx.layout, ctx.features, ctx.needs_input_grad[1])
         return (dtable if ctx.needs_input_grad[0] else None), dpos, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, table, positions, layout, features):
+        table, positions = _scene_first(in_dims[:2], table, positions)
+        return corner_encode_fwd_cuda(table, positions, layout, features), 0
 
 
 def grid_encode_flat(

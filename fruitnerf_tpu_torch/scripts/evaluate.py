@@ -9,7 +9,8 @@ plus rays/sec and fps.
 
 The capture is parsed again at the run's split and ``--downscale-factor``
 (both in its manifest; the twin re-parses at the automatic factor). It runs
-on the card unless ``--device cpu`` asks for the CPU.
+on the card unless ``--device cpu`` asks for the CPU; ``--mesh`` splits each
+camera's rays over every visible card (``utils.mesh_devices``).
 """
 from __future__ import annotations
 
@@ -39,12 +40,10 @@ def add_args(p: argparse.ArgumentParser):
 def main(args):
     from ..engine.runs import load_run, parse_capture
     from ..engine.trainer import evaluate_all
-    from ..utils import resolve_device
+    from ..utils import mesh_devices, resolve_device
 
-    if args.mesh:
-        raise NotImplementedError(
-            "eval --mesh (multi-device eval) is not ported (ROADMAP Queue 1 item 7)")
     dev = resolve_device(args.device)
+    devices = mesh_devices(dev) if args.mesh else None
     manifest, config, state = load_run(args.load_dir, dev)
 
     if args.data == "synthetic":
@@ -70,7 +69,7 @@ def main(args):
         "all": np.arange(data.cameras.num_cameras),
     }[args.split]
     stats = evaluate_all(state.params, data, indices, config,
-                         lpips_weights_path=args.lpips_weights)
+                         lpips_weights_path=args.lpips_weights, devices=devices)
     stats["num_images_evaluated"] = len(indices)
     stats["step"] = state.step
     stats["device"] = str(dev)

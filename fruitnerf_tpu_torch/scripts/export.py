@@ -50,9 +50,8 @@ def add_args(p: argparse.ArgumentParser):
     )
     p.add_argument(
         "--mesh", action="store_true",
-        help="shard the probe stream over all visible devices (each device "
-             "field-queries + compacts its ray shard; combine with the "
-             "global --cpu-mesh N to exercise without chips)",
+        help="shard the probe stream over all visible cards (each card "
+             "field-queries and masks its ray shard of every batch)",
     )
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: the card; 'cpu' "
@@ -62,12 +61,8 @@ def add_args(p: argparse.ArgumentParser):
 def main(args):
     from ..engine.runs import load_run
     from ..export.volume_sampler import ExportConfig, sample_volume
-    from ..utils import resolve_device
+    from ..utils import mesh_devices, resolve_device
 
-    if args.mesh:
-        raise NotImplementedError(
-            "export --mesh (multi-device export) is not ported (ROADMAP Queue 1 item 7)"
-        )
     dev = resolve_device(args.device)
     manifest, config, state = load_run(args.load_dir, dev)
     if args.mode == "pointcloud":
@@ -85,6 +80,7 @@ def main(args):
     out = sample_volume(
         state.params["model"], config.model, export_config,
         dataparser_scale=manifest["dataparser_scale"], output_dir=args.output_dir,
+        devices=mesh_devices(dev) if args.mesh else None,
     )
     for name, d in out.items():
         print(f"{name}: {d['points'].shape[0]} points -> {d['path']}")

@@ -10,7 +10,7 @@ Unlike the twin, the run's config is rebuilt with its manifest's
 ``config_overrides`` (as ``eval`` and ``export`` do), so a run trained with
 a shape-changing override restores, and a capture is parsed at the run's
 ``--downscale-factor``. It runs on the card unless ``--device cpu`` asks for
-the CPU.
+the CPU; ``--mesh`` splits each camera's rays over every visible card.
 """
 from __future__ import annotations
 
@@ -52,12 +52,10 @@ def main(args):
 
     from ..engine.runs import load_run, parse_capture
     from ..engine.trainer import render_camera
-    from ..utils import resolve_device
+    from ..utils import mesh_devices, resolve_device
 
-    if args.mesh:
-        raise NotImplementedError(
-            "render --mesh (multi-device render) is not ported (ROADMAP Queue 1 item 7)")
     dev = resolve_device(args.device)
+    devices = mesh_devices(dev) if args.mesh else None
     manifest, config, state = load_run(args.load_dir, dev)
 
     if args.data == "synthetic":
@@ -75,7 +73,7 @@ def main(args):
     out.mkdir(parents=True, exist_ok=True)
     written = []
     for ci in args.cameras:
-        panels = render_camera(state.params, cameras, ci, config)
+        panels = render_camera(state.params, cameras, ci, config, devices)
         panels["semantics"] = torch.sigmoid(panels["semantics"][..., 0])
         for key, name in (("rgb", "rgb"), ("depth", "depth"), ("accumulation", "acc"),
                           ("semantics", "semantics"), ("semantics_colormap", "colormap")):

@@ -12,3 +12,12 @@ def resolve_device(device="cuda") -> torch.device:
             "card; pass --device cpu (device='cpu') to run on the CPU"
         )
     return dev
+
+
+def mesh_devices(device: torch.device) -> list[torch.device]:
+    """The devices ``--mesh`` shards over: every visible card (the twin's
+    ``Mesh(jax.devices())``) when ``device`` is a card, else ``device``
+    alone, a one-shard mesh."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [device]

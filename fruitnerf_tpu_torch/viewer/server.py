@@ -20,7 +20,7 @@ Endpoints: GET / (UI), /render?theta=&phi=&radius=&size=&panel=&crop=...
 Requests are served on handler threads, one render at a time on the
 device; each render enters ``torch.inference_mode`` itself, because grad
 mode is per thread. It runs on the card unless ``--device cpu`` asks for
-the CPU; ``--mesh`` (multi-device frames) is not ported.
+the CPU; ``--mesh`` splits each frame's rays over every visible card.
 """
 from __future__ import annotations
 
@@ -115,11 +115,13 @@ def _to_u8(x: np.ndarray) -> np.ndarray:
 
 class ViewerSession:
     """Holds a loaded run and renders view-panel frames on demand, on the
-    device its parameters are on."""
+    device its parameters are on, or split over ``devices``
+    (``render_camera``'s)."""
 
-    def __init__(self, params, config, scene_aabb=None):
+    def __init__(self, params, config, scene_aabb=None, devices=None):
         self.params = params
         self.config = config
+        self.devices = devices
         self.device = params["model"]["field"]["base_mlp"]["w0"].device
         # Preview config: ~4x fewer samples/ray for interactive orbiting.
         # Sample counts are sampling shapes, not parameters, so the same
@@ -143,13 +145,14 @@ class ViewerSession:
         self._lock = threading.Lock()  # one render at a time on the device
 
     @classmethod
-    def from_run_dir(cls, run_dir, device):
+    def from_run_dir(cls, run_dir, device, devices=None):
         """A trained run restored through ``engine/runs.py:load_run`` (the
         manifest's overrides applied, its layout checked) onto ``device``."""
         from ..engine.runs import load_run
 
         manifest, config, state = load_run(run_dir, device)
-        return cls(state.params, config, scene_aabb=manifest.get("scene_aabb"))
+        return cls(state.params, config, scene_aabb=manifest.get("scene_aabb"),
+                   devices=devices)
 
     def render_frame(self, theta, phi, radius, size, panel="rgb",
                      crop: np.ndarray | None = None,
@@ -161,7 +164,7 @@ class ViewerSession:
         # grad mode is per thread: a handler thread enters inference mode
         # itself; the lock keeps one render and its read-back on the device
         with self._lock, torch.inference_mode():
-            panels = render_camera(self.params, cameras, 0, config)
+            panels = render_camera(self.params, cameras, 0, config, self.devices)
             if panel == "rgb":
                 x = panels["rgb"].cpu().numpy()
             elif panel == "semantics":
@@ -346,12 +349,11 @@ def add_args(p):
 
 
 def main(args):
-    from ..utils import resolve_device
+    from ..utils import mesh_devices, resolve_device
 
-    if args.mesh:
-        raise NotImplementedError(
-            "viewer --mesh (multi-device frames) is not ported (ROADMAP Queue 1 item 7)")
-    session = ViewerSession.from_run_dir(args.load_dir, resolve_device(args.device))
+    dev = resolve_device(args.device)
+    session = ViewerSession.from_run_dir(args.load_dir, dev,
+                                         mesh_devices(dev) if args.mesh else None)
     httpd = serve(session, port=args.port, host=args.host)
     print(f"viewer at http://{args.host}:{args.port}/  (ctrl-c to stop)")
     try:

@@ -9,7 +9,9 @@ kernels at the big preset's layout through ``grid_encode``; two training
 runs from one seed, which must be bitwise equal; and the disk
 capture workflow on the card: ``train --data <capture>`` launches K1/K2 as
 predicted, ``eval`` and ``render`` run on the card by default, and LPIPS
-there equals LPIPS on the CPU. Every test
+there equals LPIPS on the CPU; the scene axis: K1-K4 at S = 4 bitwise
+equal to single launches, a multi-scene step on the card against the CPU,
+two gloo ranks sharing the card against one. Every test
 here is marked ``gpu`` and skips without one.
 This file imports no JAX, so it runs on the GPU machine, which has none:
 
@@ -716,3 +718,171 @@ def test_viewer_frame_on_the_card_equals_the_cpu(dev, panel):
     assert hg.LAUNCHES["corner_encode_fwd"] > before
     assert card.shape == cpu.shape == (64, 64, 3)
     assert int(np.abs(card.astype(int) - cpu).max()) <= VIEWER_U8_LEVELS
+
+
+# ---------------------------------------------------------------------------
+# the scene axis: batched launches, the multi-scene step, data parallelism
+# ---------------------------------------------------------------------------
+
+
+def _scene_case(dev, family: str, scenes: int = 4, n: int = 5000):
+    """S tables, position sets and gradients at the fruit_nerf two-tier
+    cell layout or a 16-level 2^15 corner layout (F = 2) -> (launchers,
+    plain version, operands)."""
+    from fruitnerf_tpu_torch.configs import fruit_nerf
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    if family == "cell":
+        layout = fruit_nerf(1).model.field.grid.cell_layout()
+        width, out = 16, 2 * layout.num_levels
+        fwd = lambda t, p: hg.cell_encode_fwd_cuda(t, p, layout)  # noqa: E731
+        bwd = lambda t, p, gr: hg.cell_encode_bwd_cuda(t, p, gr, layout, True)  # noqa: E731
+        plain = lambda t, p: hg.cell_encode_torch(t, p, layout)  # noqa: E731
+    else:
+        res = [int(16 * 1.38 ** l) for l in range(16)]
+        layout = hg.corner_layout(res, 1 << 15)
+        width, out = 2, 2 * layout.num_levels
+        fwd = lambda t, p: hg.corner_encode_fwd_cuda(t, p, layout, 2)  # noqa: E731
+        bwd = lambda t, p, gr: hg.corner_encode_bwd_cuda(t, p, gr, layout, 2, True)  # noqa: E731
+        plain = lambda t, p: hg.grid_encode_corner_torch(t, p, layout, 2)  # noqa: E731
+    tables = torch.rand((scenes, layout.total_rows, width), generator=g, device=dev) * 2 - 1
+    pos = torch.rand((scenes, n, 3), generator=g, device=dev)
+    pos[:, : n // 2] = pos[:, : n // 2].sort(dim=1).values  # ray-ordered runs, as a step's
+    grad = torch.randn((scenes, n, out), generator=g, device=dev)
+    return fwd, bwd, plain, tables, pos, grad
+
+
+@pytest.mark.parametrize("family", ["cell", "corner"])
+def test_scene_batched_kernels_equal_single_launches(dev, family):
+    """K1-K4 at S = 4: one launch for the four scenes, each scene bitwise
+    equal to a launch of that scene alone (forward, dTable, dPositions; the
+    fixed-point scales are each scene's own), and within FWD_ATOL/BWD_RTOL
+    of the plain version; a table shared by the scenes (given without the
+    scene axis, as the vmap rules pass an unbatched operand) equals the
+    table given to each."""
+    fwd, bwd, plain, tables, pos, grad = _scene_case(dev, family)
+    hg.reset_launch_counts()
+    out = fwd(tables, pos)
+    dt, dp = bwd(tables, pos, grad)
+    name = f"{family}_encode"
+    assert hg.LAUNCHES[f"{name}_fwd"] == hg.LAUNCHES[f"{name}_bwd"] == 1
+    assert hg.SCENES[f"{name}_fwd"] == hg.SCENES[f"{name}_bwd"] == 4
+    for s in range(4):
+        assert torch.equal(out[s], fwd(tables[s], pos[s])), s
+        dts, dps = bwd(tables[s], pos[s], grad[s])
+        assert torch.equal(dt[s], dts) and torch.equal(dp[s], dps), s
+        t_ = tables[s].clone().requires_grad_(True)
+        p_ = pos[s].clone().requires_grad_(True)
+        ref = plain(t_, p_)
+        torch.testing.assert_close(out[s], ref.detach(), atol=FWD_ATOL, rtol=0)
+        ref.backward(grad[s])
+        assert _rel(dt[s], t_.grad) <= BWD_RTOL and _rel(dp[s], p_.grad) <= BWD_RTOL
+    out_shared = fwd(tables[1], pos)
+    dt_shared, dp_shared = bwd(tables[1], pos, grad)
+    for s in range(4):
+        assert torch.equal(out_shared[s], fwd(tables[1], pos[s])), s
+        dts, dps = bwd(tables[1], pos[s], grad[s])
+        assert torch.equal(dt_shared[s], dts) and torch.equal(dp_shared[s], dps), s
+    with pytest.raises(ValueError, match="contiguous"):
+        fwd(tables[1].expand(4, *tables.shape[1:]), pos)
+
+
+def _tiny_smoke(num_images: int):
+    import dataclasses
+
+    from fruitnerf_tpu_torch.configs import fruit_nerf_smoke
+
+    cfg = fruit_nerf_smoke(num_images)
+    m = dataclasses.replace(cfg.model, num_nerf_samples=8, num_proposal_samples=(16, 8))
+    return dataclasses.replace(cfg, model=m, train_rays_per_batch=256)
+
+
+def test_multi_scene_step_on_the_card_matches_the_cpu(dev):
+    """One multi-scene step of two smoke scenes on the card (K3/K4 launched
+    once for both scenes at each call) against the CPU's plain versions on
+    the same parameters and draws: losses within the GPU-CPU step bound."""
+    from fruitnerf_tpu_torch.bridge import tree_map
+    from fruitnerf_tpu_torch.data.builder import dataset_from_scene
+    from fruitnerf_tpu_torch.data.synthetic import SyntheticSceneConfig, render_scene
+    from fruitnerf_tpu_torch.engine.trainer import StepDraws, draw_step
+    from fruitnerf_tpu_torch.parallel import multi_scene as ms
+
+    cfg = _tiny_smoke(6)
+    scenes = [render_scene(SyntheticSceneConfig(num_fruits=3, num_cameras=6, image_size=32,
+                                                seed=s), device="cpu") for s in range(2)]
+    cpu_state, gens = ms.init_multi_scene_state(cfg, 6, 2, "cpu")
+    cpu_data = ms.stack_datasets([dataset_from_scene(s, "cpu", train_fraction=1.0)
+                                  for s in scenes])
+    draws = [draw_step(cfg, ms.scene_dataset(cpu_data, s), gens[s]) for s in range(2)]
+    card_state, _ = ms.init_multi_scene_state(
+        cfg, 6, 2, dev, params=tree_map(cpu_state.params, lambda t: t.to(dev)))
+    card_data = ms.stack_datasets([dataset_from_scene(s, dev, train_fraction=1.0)
+                                   for s in scenes])
+    card_draws = [StepDraws(**tree_map(dict(vars(d)), lambda t: t.to(dev))) for d in draws]
+    want = ms.multi_scene_step(cpu_state, cpu_data, cfg, draws=draws)
+    hg.reset_launch_counts()
+    got = ms.multi_scene_step(card_state, card_data, cfg, draws=card_draws)
+    assert hg.SCENES["corner_encode_fwd"] == 2 * hg.LAUNCHES["corner_encode_fwd"] > 0
+    assert hg.SCENES["corner_encode_bwd"] == 2 * hg.LAUNCHES["corner_encode_bwd"] > 0
+    for k in ("total_loss", "rgb_loss", "semantics_loss", "interlevel_loss"):
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-4, atol=0)
+
+
+# one rank of the data-parallel test below: trains from the job's seed
+# through train_loop on the card and saves its per-step metrics and params
+_DP_RANK = """
+import sys, torch
+from fruitnerf_tpu_torch.engine import trainer
+from fruitnerf_tpu_torch.parallel import mesh as M
+job_path, rank, world, init, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
+job = torch.load(job_path, weights_only=False)
+mesh = M.init_data_mesh("gloo", world, rank, init)
+try:
+    cfg, data = job["config"], job["data"]
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    metrics = []
+    state = trainer.train_loop(cfg, data, generator=gen, mesh=mesh, callbacks=[
+        lambda it, st, m: metrics.append({k: float(v) for k, v in m.items()})])
+    torch.save({"metrics": metrics, "params": state.params}, out)
+finally:
+    M.close_data_mesh()
+"""
+
+
+def test_two_gloo_ranks_on_one_card_match_one(dev, tmp_path):
+    """Two ranks sharing the card over gloo against one rank, 3 steps of
+    the smoke preset from one seed: losses within 2e-5 (the JAX package's
+    1-vs-N bound), the ranks bitwise equal."""
+    import dataclasses
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from fruitnerf_tpu_torch.bridge import tree_leaves
+    from fruitnerf_tpu_torch.data.builder import dataset_from_scene
+    from fruitnerf_tpu_torch.data.synthetic import SyntheticSceneConfig, render_scene
+    from fruitnerf_tpu_torch.engine import trainer
+
+    cfg = dataclasses.replace(_tiny_smoke(6), max_iters=3, steps_per_eval=0, steps_per_save=0)
+    data = dataset_from_scene(render_scene(SyntheticSceneConfig(num_fruits=3, num_cameras=6,
+                                                                image_size=32), device="cpu"), dev)
+    ref = []
+    trainer.train_loop(cfg, data, generator=torch.Generator(device=dev).manual_seed(cfg.seed),
+                       callbacks=[lambda it, st, m: ref.append(float(m["total_loss"]))])
+    torch.save({"config": cfg, "data": data}, tmp_path / "job.pt")
+    repo = Path(__file__).resolve().parents[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _DP_RANK, str(tmp_path / "job.pt"), str(r), "2",
+         f"file://{tmp_path / 'pg'}", str(tmp_path / f"rank{r}.pt")],
+        cwd=repo, env={**os.environ, "PYTHONPATH": str(repo)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=600)
+        assert p.returncode == 0, err[-4000:]
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    assert ranks[0]["metrics"] == ranks[1]["metrics"]
+    for a, b in zip(tree_leaves(ranks[0]["params"]), tree_leaves(ranks[1]["params"])):
+        assert torch.equal(a, b)
+    got = [m["total_loss"] for m in ranks[0]["metrics"]]
+    np.testing.assert_allclose(got, ref, rtol=2e-5)

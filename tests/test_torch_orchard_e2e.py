@@ -166,20 +166,6 @@ def test_train_cli_writes_a_run_that_export_reads(tmp_path):
                for n in ("semantic", "semantic_colormap", "density"))
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["eval", "--load-dir", "unused", "--data", "unused", "--mesh"], "item 7"),
-    (["viewer", "--load-dir", "unused", "--mesh"], "item 7"),
-    (["export", "--load-dir", "unused", "--output-dir", "unused", "--mesh"], "item 7"),
-    (["render", "--load-dir", "unused", "--data", "unused", "--output-dir", "unused", "--mesh"],
-     "item 7"),
-])
-def test_unported_options_raise(argv, item):
-    """What the port leaves out raises before it touches a file, naming the
-    ROADMAP item that ports it."""
-    with pytest.raises(NotImplementedError, match=item):
-        port_cli.main(argv)
-
-
 @pytest.mark.parametrize("name, variant", [("fruit_nerf_big", "grid"), ("fruit_nerf_smoke", "grid"),
                                            ("fruit_nerf", "tpu"), ("fruit_nerf", "parity")])
 def test_get_preset_serves_only_the_ported_preset(name, variant):
@@ -253,7 +239,8 @@ import importlib, pkgutil, fruitnerf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(fruitnerf_tpu_torch.__path__, "fruitnerf_tpu_torch.")]
 tools = {"fruitnerf_tpu_torch." + m for m in (
     "utils.profiling", "export.rgb_pointcloud", "scripts.suggest_crop", "scripts.speed_probe",
-    "viewer.server", "counting.dbscan_device")}
+    "viewer.server", "counting.dbscan_device", "parallel.mesh", "parallel.multi_scene",
+    "scripts.multi_scene_campaign")}
 assert tools <= set(names), sorted(tools - set(names))
 for name in names:
     importlib.import_module(name)

@@ -5,8 +5,7 @@ trips of tests/test_viewer.py against a live server on an ephemeral port
 preset's parameters made by JAX and bridged into the port; the crop-box
 overlay against the JAX function's; and a frame served from a handler
 thread, which renders in inference mode and builds no autograd graph.
-``viewer --mesh`` raises (tests/test_torch_orchard_e2e.py::
-test_unported_options_raise)."""
+``viewer --mesh``: tests/test_torch_mesh_inference.py."""
 import io
 import json
 import threading
