@@ -59,23 +59,27 @@ Phases, each printing its lines:
   orchard  scripts.orchard_e2e.main on the bench orchard (120 fruits, 200
            cameras at 256^2, rendered once, into the scene cache it reads,
            by the torch renderer above the numpy tracer's 2M ray-sphere
-           pairs; camera 0's mask held to the numpy tracer's),
-           ORCHARD_ITERS full-width steps, sparsity 0.005, an export at
-           N = EXPORT_N and the counting cascade (the native counting
-           library must load). Checks that the reports name the card, K1/K2
-           launches in training (>= 2 and >= 1 a step) and K1's in export
-           (one a batch), a non-empty density cloud, finite eval stats; then
-           a second call on the same directory, which must resume at the
-           final step, run zero steps, report null rates and export the
-           same clouds. The logged losses must be finite and the train PSNR
-           rise
+           pairs; camera 0's mask held to the numpy tracer's), the first
+           ORCHARD_ITERS full-width steps of an ORCHARD_SCHEDULE-step run
+           (its learning rates, the default train seed), sparsity 0.005, an
+           export at N = COUNT_EXPORT_N and the counting cascade (the native
+           counting library must load). Checks that the reports name the
+           card, K1/K2 launches in training (>= 2 and >= 1 a step) and K1's
+           in export (one a batch), a non-empty density cloud, finite eval
+           stats, and that a semantic cloud counts (count_criterion: more
+           than half its points within 2 fruit radii of a GT centre, a count
+           in [1, 3 x GT]); then a second call on the same directory, which
+           must resume at the final step, run zero steps, report null rates
+           and export the same clouds. The logged losses must be finite and
+           the train PSNR rise
   hash     K3/K4 at the parity variant's three hash layouts (the main
            field's 16 levels x 2^19 entries, a 64 MiB table; two 5-level
            2^17-entry proposal fields) at uniform-random points: P_SLICE for
            the main field, a step's proposal samples (1,048,576 and 393,216)
            for the others, with bounds and yardstick
   orchard parity
-           the orchard phase with --variant parity for PARITY_ITERS steps:
+           the orchard phase with --variant parity for PARITY_ITERS steps
+           (its own schedule, an export at N = EXPORT_N, no count checked):
            K3/K4 launches in train_loop and in export must equal what the
            config predicts (predicted_hash_launches); the last step's four
            hash encodings are captured and K3/K4 held and timed at them
@@ -217,12 +221,21 @@ BWD_RTOL = 1e-4  # backward kernels: relative to each gradient's max; atomics re
 LOSS_RTOL = 1e-4  # small-input step, GPU against CPU, float32
 GRAD_RTOL = 1e-3  # its gradients, relative to each one's max magnitude
 P_SLICE = 4096 * 48 + 4096  # fine samples plus sparsity points of one step
-ORCHARD_ITERS = 700  # the orchard phase's steps (2000 until the tools phase came, 1500
-# until the scale-out phase came, 1000 until its campaign-call and seed checks came;
-# the script must stay under 600 s on a slow host)
-EXPORT_N = 256  # its export's probe grid side: 2^24 probes in 4 batches
-PARITY_ITERS = 500  # the parity variant's orchard steps (1000 until the scale-out phase,
-# 700 until its campaign-call and seed checks; at least one eval, every 500 steps)
+# The orchard phase runs the first ORCHARD_ITERS steps of the bench orchard's
+# ORCHARD_SCHEDULE-step run (its learning rates; the default train seed) and
+# must count there: at 2500 steps of that schedule every train seed of
+# PERF.md's runs (42-46) counted, seed 42 last (IoU 0.55). A run of
+# --iters 2500 alone decays its rates over 2500 steps, and seed 42 then
+# stays in the all-background optimum (IoU 0.07, empty clouds). It was 700
+# steps, with no count checked, before.
+ORCHARD_ITERS = 2500
+ORCHARD_SCHEDULE = 30000
+COUNT_EXPORT_N = 384  # the grid orchard's export (bench.py's N): the cloud it counts
+EXPORT_N = 256  # the parity orchard's export and the kernel phase's export batch
+PARITY_ITERS = 200  # the parity variant's orchard steps (1000 until the scale-out phase,
+# 700 until its campaign-call and seed checks, 500 until the orchard phase counted; its
+# K3/K4 launches are also held by the hash phase and the parity campaign; two logged
+# steps, every 100, for the rising-PSNR check)
 LARGE_P = 2_000_000  # above this many points a kernel pair's medians are of 10 runs, not 30
 
 
@@ -1022,15 +1035,18 @@ def orchard_phase(dev, iters: int, export_n: int, hg, name: str, variant: str = 
     ``scripts.orchard_e2e.main --variant <variant>``, on the bench orchard
     at full width; then a second call on the same directory, which resumes
     at the final step. The grid variant's call first renders the scene into
-    the cache both calls read. ``captured`` (a sink, for the parity
-    variant) receives the positions of every hash encoding made with
-    gradients on. Returns the launches summed over the counted calls of
-    both: K1/K2 on the grid variant, K3/K4 on the parity variant, each held
-    to what the config predicts on the latter."""
+    the cache both calls read; its learning rates decay over
+    ORCHARD_SCHEDULE steps, and a semantic cloud must pass
+    ``count_criterion``. ``captured`` (a sink, for the parity variant)
+    receives the positions of every hash encoding made with gradients on.
+    Returns the launches summed over the counted calls of both: K1/K2 on
+    the grid variant, K3/K4 on the parity variant, each held to what the
+    config predicts on the latter."""
     from fruitnerf_tpu_torch.data import synthetic
     from fruitnerf_tpu_torch.engine import trainer
     from fruitnerf_tpu_torch.export import volume_sampler as vs
-    from fruitnerf_tpu_torch.scripts import count, orchard_e2e
+    from fruitnerf_tpu_torch.export.ply import read_ply
+    from fruitnerf_tpu_torch.scripts import convergence, count, orchard_e2e
 
     tag = "orchard" if variant == "grid" else f"orchard {variant}"
     lib = count.native_library()
@@ -1065,6 +1081,10 @@ def orchard_phase(dev, iters: int, export_n: int, hg, name: str, variant: str = 
     orchard_e2e.add_args(parser)
     spy = (contextlib.nullcontext() if captured is None
            else captured_positions(captured, "grid_encode_flat"))
+    adjust = None
+    if variant == "grid":  # the default train seed, the schedule of an ORCHARD_SCHEDULE-step run
+        def adjust(c):
+            return convergence.with_seed_and_schedule(c, c.seed, ORCHARD_SCHEDULE)
     with tempfile.TemporaryDirectory() as run_dir:
         args = parser.parse_args([
             "--num-fruits", str(ORCHARD["num_fruits"]), "--num-cameras", str(ORCHARD["num_cameras"]),
@@ -1077,9 +1097,11 @@ def orchard_phase(dev, iters: int, export_n: int, hg, name: str, variant: str = 
             with counted_calls(trainer, "train_loop", hg, counts), \
                     counted_calls(vs, "sample_volume", hg, counts), \
                     (spy if call == 0 else contextlib.nullcontext()):
-                reports.append(orchard_e2e.main(args))
+                reports.append(orchard_e2e.main(args, adjust=adjust))
         first, second = reports
         log = [json.loads(x) for x in (Path(run_dir) / "metrics.jsonl").read_text().splitlines()]
+        clouds = {k: read_ply(Path(run_dir) / f"{k}.ply")["points"]
+                  for k in ("semantic", "semantic_colormap")}
     batches = math.ceil(export_n**2 / vs.rays_per_batch(vs.ExportConfig(num_points_per_side=export_n)))
 
     steps = first["steps_run"]
@@ -1133,6 +1155,17 @@ def orchard_phase(dev, iters: int, export_n: int, hg, name: str, variant: str = 
                   f"{c['precision']:.4f}, recall {c['recall']:.4f}")
             check(c["count"] >= 0 and 0.0 <= c["F1"] <= 1.0, f"count on {cloud}: {c}")
     print(f"{tag}: count_s {first['count_s']:.3f} s")
+    if variant == "grid":  # the main path must count
+        gt = synthetic.fruit_centers(cfg_scene)
+        passed = []
+        for cloud, points in clouds.items():
+            near, fails = count_criterion(points, first["counting"][cloud]["count"], gt,
+                                          cfg_scene.fruit_radius)
+            print(f"{tag}: {cloud} cloud: {len(points)} points, {near:.4f} within 2 fruit radii "
+                  f"of a GT centre, count {first['counting'][cloud]['count']} of {len(gt)}: "
+                  + ("; ".join(fails) if fails else "counts"))
+            passed += [cloud] if not fails else []
+        check(bool(passed), f"{tag}: no semantic cloud counts after {steps} steps")
 
     print(f"{tag}: second call resumed at step {second.get('resumed_from_step')}, ran "
           f"{second['steps_run']} steps; train_rays_per_sec {second['train_rays_per_sec']}; "
@@ -1454,8 +1487,8 @@ def probe_capture(tag: str, run_dir: Path, manifest: dict, scene: dict, cfg, dev
               f"semantic logit p10/50/90 {_pcts(logit)}")
 
 
-def export_and_count(tag: str, run_dir: Path, manifest: dict, scene: dict, exp_dir: Path, dev,
-                     hg, counts: dict, fwd: str, count: bool = True) -> dict:
+def export_and_count(tag: str, run_dir: Path, manifest: dict, scene: dict, exp_dir: Path, hg,
+                     counts: dict, fwd: str, count: bool = True) -> dict:
     """``export`` of a capture run in DISK_BOX at DISK_THRESHOLDS (its
     launches: one ``fwd`` a batch), then ``count`` of the fruit cloud: more
     than half of it within two fruit radii of a GT centre, a count in
@@ -1490,11 +1523,8 @@ def export_and_count(tag: str, run_dir: Path, manifest: dict, scene: dict, exp_d
     # exported points land at dataparser_transform @ world / applied_scale
     gt, r_world = gt_in_capture(manifest, scene)
     r_out, gt_count = r_world / APPLIED_SCALE, len(gt)
-    gt_out = torch.tensor(gt / APPLIED_SCALE, device=dev)
     pts = clouds["semantic_colormap"]["points"]
     check(len(pts) > 0, f"{tag}: the fruit cloud is empty")
-    d = torch.cdist(torch.tensor(pts, dtype=torch.float64, device=dev), gt_out).min(1).values
-    near = float((d < 2.0 * r_out).double().mean())
     t0 = time.perf_counter()
     results = run_cli(count_cli, [
         "--cloud", exp_dir / "semantic_colormap.ply", "--eps", 0.6 * r_out,
@@ -1505,12 +1535,31 @@ def export_and_count(tag: str, run_dir: Path, manifest: dict, scene: dict, exp_d
     count_s = time.perf_counter() - t0
     (row,) = results.values()
     row.setdefault("count", row.get("error"))
+    near, fails = count_criterion(pts, row["count"], gt / APPLIED_SCALE, r_out)
     print(f"{summary}; {near:.4f} of the fruit cloud within 2 fruit radii of a GT centre; "
           f"count {row['count']}/{gt_count} in {count_s:.3f} s (cloud "
           f"{Path(row['cloud_used']).name})")
-    check(near > 0.5, f"{tag}: only {near:.2%} of the fruit cloud lies near a GT centre")
-    check(1 <= row["count"] <= 3 * gt_count, f"{tag}: count {row['count']} of {gt_count}")
+    check(not fails, f"{tag}: " + "; ".join(fails))
     return {**out, "near": near, "count": row["count"], "count_s": count_s}
+
+
+def count_criterion(points, count: int, gt_centers, radius: float) -> tuple[float, list[str]]:
+    """The check that a fruit cloud counts: it is non-empty, more than half
+    of its points lie within 2 fruit radii of a GT centre, and its count
+    lies in [1, 3 x GT]. Returns (that share, the criteria it fails)."""
+    from fruitnerf_tpu_torch.scripts.convergence import near_share
+
+    pts = np.asarray(points, np.float64).reshape(-1, 3)
+    gt = np.asarray(gt_centers, np.float64).reshape(-1, 3)
+    if len(pts) == 0:
+        return 0.0, ["the cloud is empty"]
+    near = near_share(pts, gt, radius)
+    fails = []
+    if not near > 0.5:
+        fails.append(f"only {near:.2%} of the cloud lies within 2 fruit radii of a GT centre")
+    if not 1 <= count <= 3 * len(gt):
+        fails.append(f"count {count} of {len(gt)} is outside [1, 3 x GT]")
+    return near, fails
 
 
 def run_cli(module, argv):
@@ -1652,7 +1701,7 @@ def disk_phase(dev, hg, name: str, seed: int) -> dict:
 
         # the probe behind DISK_THRESHOLDS, then the export and count there
         probe_capture("disk", run_dir, manifest, scene, cfg, dev, rng)
-        export_and_count("disk", run_dir, manifest, scene, tmp / "export", dev, hg, counts,
+        export_and_count("disk", run_dir, manifest, scene, tmp / "export", hg, counts,
                          "cell_encode_fwd")
     return summed(counts)
 
@@ -1663,8 +1712,8 @@ def disk_phase(dev, hg, name: str, seed: int) -> dict:
 
 PRESET_CAMERAS = 240  # at the presets' 0.99 split, more than max_train_images (200) train
 BIG_ITERS = 1000
-HUGE_ITERS = 300
-TPU_ITERS = 500
+HUGE_ITERS = 200  # 300 until the orchard phase counted; two logged steps at least
+TPU_ITERS = 250  # 500 until the orchard phase counted
 
 
 def write_processed_capture(dev, root: Path) -> tuple[dict, Path, float]:
@@ -1802,7 +1851,7 @@ def big_phase(scene, tree: Path, root: Path, process_s: float, dev, hg, name: st
     check(final is not None and math.isfinite(final["final_eval_psnr"]), "big: no final eval")
     eval_capture("big", tree, run_dir, dev, hg, counts)
     probe_capture("big", run_dir, manifest, scene, cfg, dev, np.random.default_rng(seed))
-    r = export_and_count("big", run_dir, manifest, scene, root / "big_export", dev, hg, counts,
+    r = export_and_count("big", run_dir, manifest, scene, root / "big_export", hg, counts,
                          "cell_encode_fwd")
     print(f"big: seconds: train {wall:.3f}, export {r['export_s']:.3f}, count "
           f"{r['count_s']:.3f}")
@@ -1836,7 +1885,7 @@ def huge_phase(tree: Path, root: Path, dev, hg, name: str, seed: int) -> tuple[d
     print(f"huge: launches in train_loop {got}, predicted {want}")
     check(got == want, "huge: the K3/K4 launches differ from the prediction")
     eval_capture("huge", tree, run_dir, dev, hg, counts)
-    export_and_count("huge", run_dir, manifest, None, root / "huge_export", dev, hg, counts,
+    export_and_count("huge", run_dir, manifest, None, root / "huge_export", hg, counts,
                      "corner_encode_fwd", count=False)
     return summed(counts), list(captured)
 
@@ -2198,7 +2247,8 @@ def tools_phase(scene: dict, tree: Path, root: Path, dev, hg, seed: int) -> dict
 # ---------------------------------------------------------------------------
 
 SCENES = 4  # the scene-batched kernels' and the campaign's scenes
-CAMPAIGN_ITERS = 400  # the grid campaign's steps (the JAX docstring's 4000, cut)
+CAMPAIGN_ITERS = 200  # the grid campaign's steps (the JAX docstring's 4000, cut; 400
+# until the orchard phase counted)
 CAMPAIGN_PARITY_ITERS = 60  # the parity campaign's steps: batched K3/K4 on their path
 SINGLE_SCENE_STEPS = 50  # steps of one scene alone, timed beside the campaign
 DP_STEPS = 5
@@ -2968,7 +3018,8 @@ def ab_phase(hg, old_source: Path, corner: bool, cases: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=400, help="steps of each slice")
+    ap.add_argument("--steps", type=int, default=200,
+                    help="steps of each slice (400 until the orchard phase counted)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ab-cell-source", type=Path, default=None,
                     help="another cell_encode.cu (for example the parent commit's): run only "
@@ -3017,26 +3068,38 @@ def main(argv=None) -> int:
         print(card)
         return 0
 
-    kernels = kernel_phase(hg, cell_layout, corner_grid, dev, args.seed)
-    parity_phase(scene, dev, args.seed)
-    cell_counts, captured = slice_phase(scene, dev, args.steps, args.seed, hg, name)
+    seconds = {}
+
+    def timed(label, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        return out
+
+    kernels = timed("kernels", kernel_phase, hg, cell_layout, corner_grid, dev, args.seed)
+    timed("parity", parity_phase, scene, dev, args.seed)
+    cell_counts, captured = timed("slice", slice_phase, scene, dev, args.steps, args.seed, hg,
+                                  name)
     step12 = step_layout(lambda t, p, gr, label: cell_pair(hg, cell_layout, label, t, p, gr),
                          cell_layout, 16, 2 * cell_layout.num_levels, captured, dev, args.seed,
                          "K1/K2")
-    corner_counts, captured = corner_slice_phase(scene, dev, args.steps, args.seed, hg, name)
+    corner_counts, captured = timed("corner", corner_slice_phase, scene, dev, args.steps,
+                                    args.seed, hg, name)
     corner_layout, f = corner_grid.table_layout(), corner_grid.features_per_level
     step34 = step_layout(
         lambda t, p, gr, label: corner_pair(hg, corner_layout, f, label, t, p, gr),
         corner_layout, f, f * corner_layout.num_levels, captured, dev, args.seed, "K3/K4")
-    orchard_counts = orchard_phase(dev, ORCHARD_ITERS, EXPORT_N, hg, name)
+    orchard_counts = timed("orchard", orchard_phase, dev, ORCHARD_ITERS, COUNT_EXPORT_N, hg,
+                           name)
     parity_cfg = parity_config(ORCHARD["num_cameras"], PARITY_ITERS)
-    hash_random = hash_kernel_phase(hg, parity_cfg, dev, args.seed)
+    hash_random = timed("hash", hash_kernel_phase, hg, parity_cfg, dev, args.seed)
     captured = collections.deque(maxlen=4)  # the last parity step's four encodings
-    parity_counts = orchard_phase(dev, PARITY_ITERS, EXPORT_N, hg, name, "parity", captured)
+    parity_counts = timed("orchard parity", orchard_phase, dev, PARITY_ITERS, EXPORT_N, hg,
+                          name, "parity", captured)
     hash_step = hash_step_layouts(hg, parity_cfg, list(captured), dev, args.seed)
-    smoke_counts = smoke_phase(dev, hg, name, args.seed)
-    disk_counts = disk_phase(dev, hg, name, args.seed)
-    presets = presets_phase(dev, hg, name, args.seed)
+    smoke_counts = timed("smoke", smoke_phase, dev, hg, name, args.seed)
+    disk_counts = timed("disk", disk_phase, dev, hg, name, args.seed)
+    presets = timed("presets", presets_phase, dev, hg, name, args.seed)
     for k in kernels:  # K5/K6's launches were counted on their own path, in the kernel phase
         if k["name"].startswith("corner_encode"):
             k["launches"] = corner_counts[k["name"]] + parity_counts[k["name"]] \
@@ -3056,14 +3119,15 @@ def main(argv=None) -> int:
         for k, d in zip(pair, ("fwd", "bwd")):
             k[key] = {at: {"points": r["points"], **_fields(r, d)} for at, r in step.items()}
             k["max_abs_err"] = max(k["max_abs_err"], *(r["max_abs_err"] for r in k[key].values()))
-    scaleout = scaleout_phase(dev, hg, name, args.seed, scene)
+    scaleout = timed("scale-out", scaleout_phase, dev, hg, name, args.seed, scene)
     kernels += scaleout["kernels"]  # the scene-batched launches of K1-K4
     check("jax" not in sys.modules, "the port imported jax")
     jax_package = sorted(m for m in sys.modules
                          if m == "fruitnerf_tpu" or m.startswith("fruitnerf_tpu."))
     check(not jax_package, f"the port imported the JAX package: {jax_package}")
 
-    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; "
+          f"seconds a phase {seconds}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

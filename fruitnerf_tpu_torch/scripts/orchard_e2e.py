@@ -182,7 +182,11 @@ def _rate(steps: int, rays_per_step: int, seconds: float | None):
     return steps * rays_per_step / seconds if steps > 0 and seconds else None
 
 
-def main(args):
+def main(args, adjust=None):
+    """Run the orchard end to end; returns the report. ``adjust`` (a
+    function of the TrainConfig, default none) changes the config after the
+    CLI's overrides: ``scripts/convergence.py`` sets the train seed and the
+    learning-rate horizon with it."""
     import torch
 
     from ..configs import apply_overrides, run_preset
@@ -221,6 +225,8 @@ def main(args):
     config = dataclasses.replace(config, max_iters=args.iters)
     overrides = cli_overrides(args)
     config = apply_overrides(config, overrides)
+    if adjust is not None:
+        config = adjust(config)
     grid = config.model.field.encoding_config
     elevation = [float(e) for e in cfg_scene.camera_elevation]
 
