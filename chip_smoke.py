@@ -178,7 +178,13 @@ layouts' at random points and at the parity step's and the huge step's
 (huge_step), K1/K2's the big step's (big_step); then the four
 scene-batched entries ``*_scenes``, whose launches are the campaigns'
 steps', whose ``single_launches_ms`` is the SCENES single launches' and
-whose ``campaign_step`` holds the campaigns' last-step calls),
+whose ``campaign_step`` holds the campaigns' last-step calls; the kernel
+phase's K2/K4 entries and the two ``*_bwd_scenes`` entries also carry the
+backward's ``passes``: device ms a launch of the memset, the column
+maxima, the adding kernel and the conversion, by torch.profiler; an
+earlier ``kernels:`` line gives those launches' dTable runs and adds,
+counted by ``hg.backward_adds``, their rate over the adding kernel's
+measured time, and the counter's modeled L2 lines),
 the card line,
 and as the last line {"ok": true, "device": {...}}. It fails if jax or any
 module of the JAX package (fruitnerf_tpu) was imported. Any failure raises
@@ -190,12 +196,17 @@ parent commit's, from git show; it must have this checkout's C interface,
 the scene axis included) apart, runs only
 the card, build and cell slice phases, and times the other K1/K2 ("old")
 against this checkout's ("new") and the plain version in turns (plain, old,
-new, new, old, plain) at random points, at the last step's positions and at
-an export batch, each held to the plain version first. --ab-corner-source
-does the same for another corner_encode.cu's K3/K4 after the corner slice,
-at random points and the corner step's positions, at the slice's F = 2
-layout and at the kernel phase's F = 4 layout. Either or both; then one
-JSON line of those times, bounds and yardstick times, and the card line.
+new, new, old, plain) at random points, at the last step's positions, at
+an export batch and at a fruit_nerf_big step's positions (AB_STEPS steps of
+step_bench's ``big`` on the slices' scene), each held to the plain version
+first. --ab-corner-source does the same for another corner_encode.cu's
+K3/K4 after the corner slice, at random points and the corner step's
+positions, at the slice's F = 2 layout and at the kernel phase's F = 4
+layout, and at the parity and huge (parity) steps' positions at their hash
+layouts. Each also times the two backwards scene-batched (SCENES scenes of
+P_SLICE random points at the scale-out phase's layouts). Either or both;
+then one JSON line of those times, bounds and yardstick times, and the card
+line.
 """
 from __future__ import annotations
 
@@ -529,10 +540,84 @@ def hold_pair(label, fwd, bwd, plain, table, pos, grad, library=None, cost=None)
 
 
 def _fields(r: dict, d: str) -> dict:
-    """``hold_pair``'s numbers of one direction ("fwd" or "bwd")."""
-    return {"max_abs_err": r[f"{d}_err"], "ms": r[f"{d}_ms"], "plain_ms": r[f"{d}_plain_ms"],
-            "bound_ms": r[f"{d}_bound_ms"], "bound_by": r[f"{d}_bound_by"],
-            "library_ms": r[f"{d}_library_ms"]}
+    """``hold_pair``'s numbers of one direction ("fwd" or "bwd"), with the
+    backward's ``passes`` where the hold asked for them: a call that
+    ``passes_phase`` makes at the end of the run."""
+    out = {"max_abs_err": r[f"{d}_err"], "ms": r[f"{d}_ms"], "plain_ms": r[f"{d}_plain_ms"],
+           "bound_ms": r[f"{d}_bound_ms"], "bound_by": r[f"{d}_bound_by"],
+           "library_ms": r[f"{d}_library_ms"]}
+    if f"{d}_passes" in r:
+        out["passes"] = r[f"{d}_passes"]
+    return out
+
+
+PASS_LAUNCHES = 5  # backward launches profiled for a pass split
+
+
+def pass_split(bwd) -> dict:
+    """Device ms a launch of each kernel and memset ``bwd()`` runs, by
+    ``torch.profiler`` over PASS_LAUNCHES launches: each one's device time
+    over the times it ran, so that a record the profiler drops leaves the
+    mean as it was. A session that recorded no adding kernel is taken
+    again, once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(row):
+        us = getattr(row, "self_device_time_total", None)
+        return row.self_cuda_time_total if us is None else us
+
+    for _ in range(2):
+        for _ in range(3):
+            bwd()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PASS_LAUNCHES):
+                bwd()
+            torch.cuda.synchronize()
+        total, count = {}, {}
+        for row in prof.key_averages():
+            if str(row.device_type).endswith("CUDA") and dev_us(row) > 0:
+                name = re.sub(r"\(.*", "", row.key).replace("void ", "").strip()
+                total[name] = total.get(name, 0.0) + dev_us(row)
+                count[name] = count.get(name, 0) + row.count
+        if any("_bwd_kernel" in name for name in total):
+            break
+    return {name: total[name] / 1e3 / count[name] for name in total}
+
+
+def backward_passes(hg, label, bwd, pos, layout, features: int, corner: bool):
+    """-> a call that splits a K2/K4 launch ``bwd()`` on positions ``pos``
+    (one scene's, or [S, P, 3]) into its passes (``pass_split``) and prints
+    beside them the launch's dTable runs and adds (``hg.backward_adds``,
+    summed over the scenes), the adds a second over the adding kernel's
+    measured time, and the counter's modeled L2 lines. ``passes_phase``
+    makes the calls after every training phase, so that no timed phase
+    runs in a process that torch.profiler has traced."""
+    return lambda: _backward_passes(hg, label, bwd, pos, layout, features, corner)
+
+
+def _backward_passes(hg, label, bwd, pos, layout, features: int, corner: bool) -> dict:
+    split = pass_split(bwd)
+    counts = collections.Counter()
+    for p in (pos if pos.dim() == 3 else pos[None]):
+        counts.update(hg.backward_adds(p, layout, features, corner))
+    adding = [ms for name, ms in split.items() if "_bwd_kernel" in name]
+    check(len(adding) <= 1, f"{label}: the backward's passes {sorted(split)}")
+    rate = (f"{counts['adds'] / (adding[0] * 1e-3) / 1e9:.2f} G adds/s over the adding kernel"
+            if adding else "the profiler recorded no adding kernel")
+    print(f"kernels: {label} backward passes (ms a launch) "
+          f"{ {k: round(v, 4) for k, v in split.items()} }; counted runs {counts['runs']}, "
+          f"adds {counts['adds']} ({rate}); modeled L2 lines {counts['modeled_l2_lines']}")
+    return split
+
+
+def passes_phase(kernels: list[dict]) -> None:
+    """Split the backwards of the kernels-JSON entries that asked for it
+    (the kernel phase's K2/K4 and the ``*_bwd_scenes`` entries) into their
+    passes, now that no training phase is left to run."""
+    for k in kernels:
+        if callable(k.get("passes")):
+            k["passes"] = k["passes"]()
 
 
 def _entries(r: dict, names, src: str, functions, lines, launches=(0, 0)) -> list[dict]:
@@ -553,31 +638,43 @@ def _inputs(dev, g, rows, width, out_dim, p=P_SLICE, pos=None):
     return table, pos, grad
 
 
-def cell_pair(hg, layout, label, table, pos, grad) -> dict:
-    """K1/K2 at ``layout`` on these inputs, with the yardstick and bounds."""
-    return hold_pair(
-        label,
-        lambda t, p: hg.cell_encode_fwd_cuda(t, p, layout),
-        lambda t, p, gr: hg.cell_encode_bwd_cuda(t, p, gr, layout, True),
+def cell_pair(hg, layout, label, table, pos, grad, passes: bool = False) -> dict:
+    """K1/K2 at ``layout`` on these inputs, with the yardstick, bounds and,
+    with ``passes``, the backward's passes."""
+    def bwd(t, p, gr):
+        return hg.cell_encode_bwd_cuda(t, p, gr, layout, True)
+
+    r = hold_pair(
+        label, lambda t, p: hg.cell_encode_fwd_cuda(t, p, layout), bwd,
         lambda t, p: hg.cell_encode_torch(t, p, layout),
         table, pos, grad,
         library=library_pair(hg, table, pos, grad, layout, corner=False),
         cost=work(hg, pos, layout, 2, corner=False),
     )
+    if passes:
+        r["bwd_passes"] = backward_passes(hg, label, lambda: bwd(table, pos, grad), pos,
+                                          layout, 2, False)
+    return r
 
 
-def corner_pair(hg, layout, feats, label, table, pos, grad) -> dict:
+def corner_pair(hg, layout, feats, label, table, pos, grad, passes: bool = False) -> dict:
     """K3/K4 at ``layout`` with ``feats`` features a level on these inputs,
-    with the yardstick and bounds."""
-    return hold_pair(
-        label,
-        lambda t, p: hg.corner_encode_fwd_cuda(t, p, layout, feats),
-        lambda t, p, gr: hg.corner_encode_bwd_cuda(t, p, gr, layout, feats, True),
+    with the yardstick, bounds and, with ``passes``, the backward's
+    passes."""
+    def bwd(t, p, gr):
+        return hg.corner_encode_bwd_cuda(t, p, gr, layout, feats, True)
+
+    r = hold_pair(
+        label, lambda t, p: hg.corner_encode_fwd_cuda(t, p, layout, feats), bwd,
         lambda t, p: hg.grid_encode_corner_torch(t, p, layout, feats),
         table, pos, grad,
         library=library_pair(hg, table, pos, grad, layout, corner=True),
         cost=work(hg, pos, layout, feats, corner=True),
     )
+    if passes:
+        r["bwd_passes"] = backward_passes(hg, label, lambda: bwd(table, pos, grad), pos,
+                                          layout, feats, True)
+    return r
 
 
 def kernel_phase(hg, cell_layout, corner_grid, dev, seed: int) -> list[dict]:
@@ -591,17 +688,17 @@ def kernel_phase(hg, cell_layout, corner_grid, dev, seed: int) -> list[dict]:
     k12 = cell_pair(
         hg, cell_layout,
         f"K1/K2 cell v2 ({cell_layout.num_levels} levels, {cell_layout.total_rows} rows)",
-        *_inputs(dev, g, cell_layout.total_rows, 16, 2 * cell_layout.num_levels),
+        *_inputs(dev, g, cell_layout.total_rows, 16, 2 * cell_layout.num_levels), passes=True,
     )
 
-    def corner(layout, feats, label):
+    def corner(layout, feats, label, passes=False):
         inputs = _inputs(dev, g, layout.total_rows, feats, feats * layout.num_levels)
-        return corner_pair(hg, layout, feats, label, *inputs)
+        return corner_pair(hg, layout, feats, label, *inputs, passes=passes)
 
     f = corner_grid.features_per_level
     layout = corner_grid.table_layout()
     k34 = corner(layout, f, f"K3/K4 corner ({layout.num_levels} levels, T={layout.rows[0]}, "
-                            f"F={f}, direct {sum(layout.direct)})")
+                            f"F={f}, direct {sum(layout.direct)})", passes=True)
     corner(hg.corner_layout(*CORNER_F4), 4,
            f"K3/K4 corner ({len(CORNER_F4[0])} levels, T={CORNER_F4[1]}, F=4)")
 
@@ -2302,7 +2399,7 @@ def vmap_rule(hg, layout, feats: int, corner: bool):
 
 
 def hold_scenes(hg, label, fwd, bwd, plain, tables, pos, grad, layout, feats: int,
-                corner: bool) -> dict:
+                corner: bool, passes: bool = False) -> dict:
     """A scene-batched kernel pair at S = tables.shape[0], launched directly
     and through the autograd Functions' ``vmap`` rules (``vmap_rule``):
     each scene of both bitwise equal to a launch of that scene alone
@@ -2310,7 +2407,7 @@ def hold_scenes(hg, label, fwd, bwd, plain, tables, pos, grad, layout, feats: in
     version; median times of the batched launch, of the S single launches,
     of the plain version over the S scenes and of one ``embedding_bag``
     over the S·P·L rows; the bound is S single launches' bytes (and
-    operations)."""
+    operations); with ``passes``, the batched backward's passes."""
     import torch.nn.functional as F
 
     s_n, p = tables.shape[0], pos.shape[1]
@@ -2382,6 +2479,9 @@ def hold_scenes(hg, label, fwd, bwd, plain, tables, pos, grad, layout, feats: in
     for d in ("fwd", "bwd"):
         b = bound(sum(c[d]["bytes"] for c in costs), sum(c[d]["ops"] for c in costs))
         r[f"{d}_bound_ms"], r[f"{d}_bound_by"] = b["bound_ms"], b["bound_by"]
+    if passes:
+        r["bwd_passes"] = backward_passes(hg, label, lambda: bwd(tables, pos, grad), pos,
+                                          layout, feats, corner)
     print(f"scale-out: {label}: forward {times['fwd_ms']:.4f} ms for {s_n} scenes, "
           f"{s_n} single launches {times['fwd_singles_ms']:.4f}, plain "
           f"{times['fwd_plain_ms']:.4f}, embedding_bag {times['fwd_library_ms']:.4f}, bound "
@@ -2422,7 +2522,8 @@ def scene_kernels(hg, dev, seed: int) -> list[dict]:
                            device=dev)
         label = (f"{name} x {SCENES} scenes ({layout.num_levels} levels, "
                  f"{layout.total_rows} rows, P {P_SLICE} a scene)")
-        r = hold_scenes(hg, label, fwd, bwd, plain, tables, pos, grad, layout, feats, is_corner)
+        r = hold_scenes(hg, label, fwd, bwd, plain, tables, pos, grad, layout, feats, is_corner,
+                        passes=True)
         for e, d in zip(_entries(r, (f"{name}_fwd_scenes", f"{name}_bwd_scenes"), src, fns,
                                  line), ("fwd", "bwd")):
             e.update(scenes=SCENES, points_per_scene=P_SLICE,
@@ -2433,21 +2534,22 @@ def scene_kernels(hg, dev, seed: int) -> list[dict]:
 
 
 @contextlib.contextmanager
-def scene_operands(hg, sink: list):
+def scene_operands(hg, sink: list, batched: bool = True):
     """Record a copy of the operands of every scene-batched K2/K4 launch in
-    the block, as the backward Functions' ``vmap`` rules hand them over:
-    (corner, tables [S, ...], positions [S, P, 3], grad [S, P, C], layout,
+    the block (of every K2/K4 launch, without ``batched``), as the backward
+    Functions (or their ``vmap`` rules) hand them over: (corner, tables
+    [S, ...] or one, positions [S, P, 3] or [P, 3], grad, layout,
     features). The same call site's K1/K3 took the same tables and
     positions."""
     real = {"cell": hg.cell_encode_bwd_cuda, "corner": hg.corner_encode_bwd_cuda}
 
     def cell(table, positions, grad, layout, needs_pos_grad):
-        if positions.dim() == 3:
+        if positions.dim() == 3 or not batched:
             sink.append((False, table.clone(), positions.clone(), grad.clone(), layout, 2))
         return real["cell"](table, positions, grad, layout, needs_pos_grad)
 
     def corner(table, positions, grad, layout, features, needs_pos_grad):
-        if positions.dim() == 3:
+        if positions.dim() == 3 or not batched:
             sink.append((True, table.clone(), positions.clone(), grad.clone(), layout, features))
         return real["corner"](table, positions, grad, layout, features, needs_pos_grad)
 
@@ -2887,9 +2989,10 @@ def scaleout_phase(dev, hg, name: str, seed: int, scene) -> dict:
 
 def _other_kernels(lib, hg, corner: bool):
     """Wrappers of another build's cell_encode or corner_encode pair (of
-    this checkout's C interface: one scene here), uncounted: -> (fwd(table,
-    pos, layout, f), bwd(table, pos, grad, layout, f)); cell mode has f =
-    2."""
+    this checkout's C interface), uncounted: -> (fwd(table, pos, layout,
+    f), bwd(table, pos, grad, layout, f)); cell mode has f = 2. The forward
+    takes one scene; the backward one, or S of contiguous [S, ...] tables,
+    positions and gradients in one launch."""
     kind = "corner" if corner else "cell"
     sizer = getattr(lib, f"{kind}_encode_bwd_work_bytes")
 
@@ -2907,11 +3010,13 @@ def _other_kernels(lib, hg, corner: bool):
 
     def bwd(table, pos, grad, layout, f):
         dtable, dpos = torch.empty_like(table), torch.empty_like(pos)
-        nbytes = (sizer(layout.total_rows, f, layout.num_levels, 1) if corner
-                  else sizer(layout.total_rows, layout.num_levels, 1))
+        scenes = pos.shape[0] if pos.dim() == 3 else 1
+        strides = (pos[0].numel(), table[0].numel()) if pos.dim() == 3 else (0, 0)
+        nbytes = (sizer(layout.total_rows, f, layout.num_levels, scenes) if corner
+                  else sizer(layout.total_rows, layout.num_levels, scenes))
         work = torch.empty(nbytes, dtype=torch.uint8, device=pos.device)
         head = (pos.data_ptr(), table.data_ptr(), grad.data_ptr(), dtable.data_ptr(),
-                dpos.data_ptr(), work.data_ptr(), pos.shape[0], 1, 0, 0)
+                dpos.data_ptr(), work.data_ptr(), pos.shape[-2], scenes, *strides)
         levels = (layout.num_levels, *hg._level_arrays(layout), stream())
         err = (lib.corner_encode_bwd(*head, f, 1, *levels) if corner
                else lib.cell_encode_bwd(*head, 1, *levels))
@@ -2932,9 +3037,45 @@ def _this_kernels(hg, corner: bool):
             lambda t, p, gr, layout, f: hg.cell_encode_bwd_cuda(t, p, gr, layout, True))
 
 
-def cell_ab_cases(layout, captured: list, dev, seed: int) -> dict:
+AB_STEPS = 50  # steps of a preset before its last step's grid operands are captured
+
+
+def preset_step_cases(name: str, scene, dev, seed: int) -> dict:
+    """The positions of the K2/K4 launches of one train step of a preset of
+    ``step_bench`` (``big``, ``parity`` or ``huge``) on the slices' scene,
+    after AB_STEPS steps (recorded by ``scene_operands``), each with a
+    random table and output gradient: -> {label: (layout, F, table,
+    positions, grad)}, labelled by their order in the step, layout and
+    point count."""
+    from fruitnerf_tpu_torch.data.builder import dataset_from_scene
+    from fruitnerf_tpu_torch.engine.trainer import init_train_state, train_step
+    from fruitnerf_tpu_torch.ops import hash_grid as hg
+    from fruitnerf_tpu_torch.scripts.step_bench import configs
+
+    data = dataset_from_scene(scene, dev)
+    cfg = configs(data.cameras.num_cameras)[name]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = init_train_state(cfg, data.cameras.num_cameras, dev, generator=gen)
+    for _ in range(AB_STEPS - 1):
+        train_step(state, data, cfg, gen)
+    calls = []
+    with scene_operands(hg, calls, batched=False):
+        train_step(state, data, cfg, gen)
+    torch.cuda.synchronize(dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    cases = {}
+    for i, (_, table, pos, grad, layout, f) in enumerate(calls):
+        label = (f"{name}_call{i}_{layout.num_levels}x{layout.rows[-1]}_res"
+                 f"{layout.resolutions[-1]}_p{pos.shape[0]}")
+        cases[label] = (layout, f, torch.rand(table.shape, generator=g, device=dev) * 2 - 1,
+                        pos, torch.randn(grad.shape, generator=g, device=dev))
+    return cases
+
+
+def cell_ab_cases(layout, captured: list, dev, seed: int, scene=None) -> dict:
     """K1/K2's A/B inputs: uniform-random points, the cell step's fine and
-    sparsity points, and (K1 alone) an export batch."""
+    sparsity points, (K1 alone) an export batch and, with ``scene``, the
+    big preset's step positions at its layout."""
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     rows, nl = layout.total_rows, layout.num_levels
     cases = {"random": (layout, 2, *_inputs(dev, g, rows, 16, 2 * nl))}
@@ -2943,13 +3084,16 @@ def cell_ab_cases(layout, captured: list, dev, seed: int) -> dict:
     export_pos, _ = export_batch(dev)
     table = torch.rand((rows, 16), generator=g, device=dev) * 2.0 - 1.0
     cases["export"] = (layout, 2, table, export_pos, None)
+    if scene is not None:
+        cases.update(preset_step_cases("big", scene, dev, seed))
     return cases
 
 
-def corner_ab_cases(hg, grid, captured: list, dev, seed: int) -> dict:
+def corner_ab_cases(hg, grid, captured: list, dev, seed: int, scene=None) -> dict:
     """K3/K4's A/B inputs: uniform-random points and the corner step's fine
     and sparsity points, at the corner slice's layout (F = 2) and at the
-    kernel phase's F = 4 layout."""
+    kernel phase's F = 4 layout; with ``scene``, the parity and huge (parity)
+    presets' step positions at their hash layouts."""
     g = torch.Generator(device=dev).manual_seed(seed + 2)
     cases = {}
     for layout, f in ((grid.table_layout(), grid.features_per_level),
@@ -2958,6 +3102,9 @@ def corner_ab_cases(hg, grid, captured: list, dev, seed: int) -> dict:
         cases[f"random_f{f}"] = (layout, f, *_inputs(dev, g, rows, f, width))
         for name, pos in zip(("step_fine", "step_sparsity"), captured):
             cases[f"{name}_f{f}"] = (layout, f, *_inputs(dev, g, rows, f, width, pos=pos))
+    if scene is not None:
+        for name in ("parity", "huge"):
+            cases.update(preset_step_cases(name, scene, dev, seed))
     return cases
 
 
@@ -2966,8 +3113,9 @@ def ab_phase(hg, old_source: Path, corner: bool, cases: dict) -> dict:
     same source ("old", built apart) and the plain version, in turns plain,
     old, new, new, old, plain, on each case (name -> (layout, F, table,
     positions, output gradient, or None to time the forward alone)). Each
-    is held to the plain version first; each case also carries its bounds
-    and the ``embedding_bag`` yardstick's times."""
+    is held to the plain version first; each case also carries its bounds,
+    the ``embedding_bag`` yardstick's times and, for a backward, both
+    sides' passes and one launch's dTable adds."""
     lib, info = hg.build_library([old_source], Path(hg._BUILD) / "ab")
     print(f"ab: {old_source} built in {info.seconds:.2f} s")
     old_fwd, old_bwd = _other_kernels(lib, hg, corner)
@@ -3012,8 +3160,67 @@ def ab_phase(hg, old_source: Path, corner: bool, cases: dict) -> dict:
             print(f"ab: {name} {d} ms (median of {iters}) plain {times['plain']} old "
                   f"{times['old']} new {times['new']}; embedding_bag {lib_ms:.4f}, bound "
                   f"{cost[d]['bound_ms']:.4f} ({cost[d]['bound_by']})")
+            if d == "bwd":  # both backwards' passes, and the adds of one launch
+                row[d]["passes"] = {side: pass_split(sides[side]) for side in ("old", "new")}
+                row[d].update(hg.backward_adds(pos, layout, f, corner))
+                split = {side: {k: round(v, 4) for k, v in p.items()}
+                         for side, p in row[d]["passes"].items()}
+                print(f"ab: {name} bwd passes (ms a launch) {split}; runs {row[d]['runs']}, "
+                      f"adds {row[d]['adds']}, modeled L2 lines {row[d]['modeled_l2_lines']}")
         results[name] = row
     return results
+
+
+def ab_scenes(hg, old_source: Path, corner: bool, dev, seed: int) -> dict:
+    """The scene-batched backward of this checkout ("new") against another
+    build's ("old") at scale_out's shapes: SCENES scenes of P_SLICE random
+    points in one launch, K2 at the fruit_nerf two-tier layout or K4 at the
+    parity main field, in turns old, new, new, old (medians of 10); each
+    scene of both held to the plain version, with the new one's passes and
+    adds and the bound of SCENES single launches."""
+    from fruitnerf_tpu_torch.configs import fruit_nerf
+    lib, _ = hg.build_library([old_source], Path(hg._BUILD) / "ab")
+    _, old_bwd = _other_kernels(lib, hg, corner)
+    plain, _, new_bwd = _this_kernels(hg, corner)
+    if corner:
+        main = fruit_nerf(1, variant="parity").model.field.hash
+        layout, f, width = hg.corner_layout(main.level_resolutions(), main.table_size), 2, 2
+    else:
+        layout, f, width = fruit_nerf(1).model.field.grid.cell_layout(), 2, 16
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    tables = torch.rand((SCENES, layout.total_rows, width), generator=g, device=dev) * 2 - 1
+    pos = torch.rand((SCENES, P_SLICE, 3), generator=g, device=dev) * 0.98 + 0.01
+    grad = torch.randn((SCENES, P_SLICE, f * layout.num_levels), generator=g, device=dev)
+    sides = {"old": lambda: old_bwd(tables, pos, grad, layout, f),
+             "new": lambda: new_bwd(tables, pos, grad, layout, f)}
+    got = {side: fn() for side, fn in sides.items()}
+    err = {"old": 0.0, "new": 0.0}
+    for sc in range(SCENES):
+        t_ = tables[sc].clone().requires_grad_(True)
+        p_ = pos[sc].clone().requires_grad_(True)
+        dt_p, dp_p = torch.autograd.grad(plain(t_, p_, layout, f), (t_, p_), grad[sc])
+        for side, (dt, dp) in got.items():
+            err[side] = max(err[side], ((dt[sc] - dt_p).abs().max() / dt_p.abs().max()).item(),
+                            ((dp[sc] - dp_p).abs().max() / dp_p.abs().max()).item())
+    check(max(err.values()) <= BWD_RTOL, f"ab scenes: backward errors {err}")
+    times = {"old": [], "new": []}
+    for side in ("old", "new", "new", "old"):
+        times[side].append(median_ms(sides[side], iters=10))
+    costs = [work(hg, pos[sc], layout, f, corner)["bwd"] for sc in range(SCENES)]
+    b = bound(sum(c["bytes"] for c in costs), sum(c["ops"] for c in costs))
+    counts = collections.Counter()
+    for sc in range(SCENES):
+        counts.update(hg.backward_adds(pos[sc], layout, f, corner))
+    row = {"scenes": SCENES, "points_per_scene": P_SLICE, "errors": err, **times,
+           "bound": b["bound_ms"], "bound_by": b["bound_by"],
+           "passes": {side: pass_split(fn) for side, fn in sides.items()},
+           **counts}
+    print(f"ab: {'K4' if corner else 'K2'} x {SCENES} scenes ({layout.num_levels} levels, "
+          f"{layout.total_rows} rows, P {P_SLICE} a scene) bwd ms (median of 10) old "
+          f"{times['old']} new {times['new']}; bound {b['bound_ms']:.4f}; errors {err}; "
+          f"passes {row['passes']}; runs {counts['runs']}, adds {counts['adds']}, modeled L2 "
+          f"lines {counts['modeled_l2_lines']}")
+    return row
 
 
 def main(argv=None) -> int:
@@ -3059,11 +3266,14 @@ def main(argv=None) -> int:
         if args.ab_cell_source is not None:
             _, captured = slice_phase(scene, dev, args.steps, args.seed, hg, name)
             ab["cell"] = ab_phase(hg, args.ab_cell_source, False,
-                                  cell_ab_cases(cell_layout, captured, dev, args.seed))
+                                  cell_ab_cases(cell_layout, captured, dev, args.seed, scene))
+            ab["cell"]["scenes"] = ab_scenes(hg, args.ab_cell_source, False, dev, args.seed)
         if args.ab_corner_source is not None:
             _, captured = corner_slice_phase(scene, dev, args.steps, args.seed, hg, name)
             ab["corner"] = ab_phase(hg, args.ab_corner_source, True,
-                                    corner_ab_cases(hg, corner_grid, captured, dev, args.seed))
+                                    corner_ab_cases(hg, corner_grid, captured, dev, args.seed,
+                                                    scene))
+            ab["corner"]["scenes"] = ab_scenes(hg, args.ab_corner_source, True, dev, args.seed)
         print(json.dumps({"ab": ab}))
         print(card)
         return 0
@@ -3121,6 +3331,7 @@ def main(argv=None) -> int:
             k["max_abs_err"] = max(k["max_abs_err"], *(r["max_abs_err"] for r in k[key].values()))
     scaleout = timed("scale-out", scaleout_phase, dev, hg, name, args.seed, scene)
     kernels += scaleout["kernels"]  # the scene-batched launches of K1-K4
+    timed("passes", passes_phase, kernels)
     check("jax" not in sys.modules, "the port imported jax")
     jax_package = sorted(m for m in sys.modules
                          if m == "fruitnerf_tpu" or m.startswith("fruitnerf_tpu."))

@@ -19,30 +19,29 @@
 // fast gather); here a row is four float4 loads. The whole table of the
 // fruit_nerf grid variant (12 x 4096 + 4 x 8192 rows x 64 B, about 5.2 MB)
 // stays in the H100's 50 MB L2. Neither kernel is bound by arithmetic
-// (about 60 and 150 float operations per (point, level)); the bound is the
-// bytes of positions, gradients and outputs (about 10 us a train step at
-// 3.35 TB/s), and what held the first version of these kernels far above it
-// was how their threads met the table:
-//   * the train step's points are ray-major, 48 consecutive samples of one
-//     ray, so neighbouring points mostly share a cell at the coarse levels;
-//   * one thread per point put a warp's 32 lanes on the same few dTable rows
-//     in the same instruction: 16 scalar atomics per (point, level) that the
-//     L2 serialises, and gradient reads at a 128-byte stride;
-//   * one thread per (point, level) put a point's levels in adjacent lanes,
-//     so no two lanes of a load ever shared a row.
+// (about 60 and 150 float operations per (point, level)). The forward is
+// bound by how its threads meet the table; the backward by how its dTable
+// adds lie, not their bytes (bench/atomic_rates.cu on the H100: about 89 G
+// scattered 8-byte adds a second with the sums in the L2, 398 G when 16
+// lanes add one 128-byte line; PERF.md).
 //
 // The design: a block takes a tile of 32 consecutive points, one lane per
 // point, and its warps take the levels (warp w: levels w, w + W, ...). The
 // tile's positions and gradients (or outputs) pass through shared memory,
-// read and written as contiguous rows. In a warp, lanes that hit the same
-// row issue one load for it, and in the backward the lanes of each run of
-// consecutive points on the same row sum their 16 products with a
-// segmented warp scan; the run's last lane adds them to dTable's 64-bit
-// fixed-point sums with integer atomics (fixed_sum.cuh), so that dTable
-// does not depend on the order of the adds. Points that share a row but not
-// a run (a hash collision) add separately. dPositions is summed per warp
-// over its levels, then over
-// the warps through shared memory, and written once, coalesced.
+// read and written as contiguous rows. The train step's points are
+// ray-major (48 consecutive samples of one ray), so neighbouring points
+// mostly share a cell at the coarse levels: in a warp, lanes that hit the
+// same row issue one load for it, and in the backward the lanes of each run
+// of consecutive points on one row sum their 16 products with a segmented
+// warp scan. dTable is summed in 64-bit fixed point (fixed_sum.cuh), so it
+// does not depend on the order of the adds. The run-end lanes stage their
+// 16 sums in the warp's shared memory and the whole warp adds them, a row
+// (16 entries, one 128-byte line) to each half of the warp, rather than
+// each run-end lane issuing 16 scattered 8-byte adds.
+// Points that share a row but not a run (a hash collision) add apart.
+// dPositions is summed per warp over its levels, then over the warps
+// through shared memory, and written once, coalesced. The backward holds
+// 63 registers a thread, so two 512-thread blocks fit an SM.
 // Everything is float32. The TPU kernel rounds the table, the saved rows
 // and the per-point dTable terms to bfloat16; that divergence is deliberate.
 //
@@ -163,7 +162,12 @@ cell_encode_fwd_kernel(const float* __restrict__ pos,
     dst[i] = s_out[(i / width) * stride + i % width];
 }
 
-__global__ void __launch_bounds__(TILE * MAX_WARPS)
+// A warp's stage: the sums of its tile's runs at one level, 16 floats a run
+// at a row stride of 17 floats (the 32 lanes, each writing its run's entry
+// k, hit 32 banks), then after the level loop its lanes' dPositions.
+#define RUN_STRIDE 17
+
+__global__ void __launch_bounds__(TILE * MAX_WARPS, 2)
 cell_encode_bwd_kernel(const float* __restrict__ pos,
                        const float4* __restrict__ table,
                        const float* __restrict__ grad,
@@ -175,7 +179,8 @@ cell_encode_bwd_kernel(const float* __restrict__ pos,
   __shared__ double s_scale[2 * CELL_MAX_LEVELS];  // fixed-point scale of each column
   __shared__ float s_pos[TILE * 3];
   __shared__ float s_grad[TILE * (2 * CELL_MAX_LEVELS + 1)];
-  __shared__ float s_dpos[MAX_WARPS][TILE * 3];
+  __shared__ float s_stage[MAX_WARPS][TILE * RUN_STRIDE];
+  __shared__ int s_rows[MAX_WARPS][TILE];
   const unsigned kAll = 0xffffffffu;
   const int num_levels = lv.num_levels;
   const int width = 2 * num_levels, stride = tile_stride(num_levels);
@@ -203,6 +208,8 @@ cell_encode_bwd_kernel(const float* __restrict__ pos,
   const float y = live ? s_pos[3 * lane + 1] : 0.f;
   const float z = live ? s_pos[3 * lane + 2] : 0.f;
   const unsigned upto_lane = kAll >> (31 - lane);  // lanes 0..lane
+  float* stage = s_stage[warp];
+  int* rows = s_rows[warp];
   float dx = 0.f, dy = 0.f, dz = 0.f;
 
   // every lane of the warp runs every iteration: the shuffles need all 32
@@ -230,8 +237,9 @@ cell_encode_bwd_kernel(const float* __restrict__ pos,
     const unsigned heads = __ballot_sync(kAll, lane == 0 || prev != key);
     if (heads != kAll) {  // some run is longer than one lane (warp-uniform)
       const int start = 31 - __clz(heads & upto_lane);  // first lane of my run
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
+      // the scan's steps: log2 of the warp's longest run
+      const int longest = (int)__reduce_max_sync(kAll, (unsigned)(lane - start + 1));
+      for (int off = 1; off < longest; off <<= 1) {
 #pragma unroll
         for (int k = 0; k < 16; ++k) {
           const float v = __shfl_up_sync(kAll, d[k], off);
@@ -239,12 +247,19 @@ cell_encode_bwd_kernel(const float* __restrict__ pos,
         }
       }
     }
+    // the run-end lanes stage their sums in lane order; the warp adds them,
+    // a cell row (16 entries, 128 bytes) to half the warp
     const bool last = lane == 31 || ((heads >> (lane + 1)) & 1u);
+    const unsigned adders = __ballot_sync(kAll, last && key >= 0);
     if (last && key >= 0) {
-      unsigned long long* arow = acc + (long long)key * 16;
+      const int r = __popc(adders & (upto_lane >> 1));
 #pragma unroll
-      for (int k = 0; k < 16; ++k) add_fixed(arow + k, d[k], s_scale[2 * l + (k & 1)]);
+      for (int k = 0; k < 16; ++k) stage[r * RUN_STRIDE + k] = d[k];
+      rows[r] = key;
     }
+    __syncwarp();
+    add_staged<16, 1, 2>(acc, stage, RUN_STRIDE, rows, __popc(adders), s_scale + 2 * l, lane);
+    __syncwarp();  // the stage is free for the next level
 
     if (needs_pos_grad && key >= 0) {
       float v[16];
@@ -266,13 +281,13 @@ cell_encode_bwd_kernel(const float* __restrict__ pos,
   }
 
   if (needs_pos_grad) {  // a kernel argument: uniform over the block
-    s_dpos[warp][3 * lane] = dx;
-    s_dpos[warp][3 * lane + 1] = dy;
-    s_dpos[warp][3 * lane + 2] = dz;
+    stage[3 * lane] = dx;
+    stage[3 * lane + 1] = dy;
+    stage[3 * lane + 2] = dz;
     __syncthreads();
     for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
       float s = 0.f;
-      for (int w = 0; w < num_warps; ++w) s += s_dpos[w][i];
+      for (int w = 0; w < num_warps; ++w) s += s_stage[w][i];
       dpos[3 * p0 + i] = s;
     }
   }
@@ -369,6 +384,6 @@ extern "C" int cell_encode_bwd(const float* pos, const float* table,
       pos, reinterpret_cast<const float4*>(table), grad, acc,
       reinterpret_cast<const unsigned*>(acc + entries * num_scenes), dpos,
       num_points, pos_stride, table_stride / 4, entries, needs_pos_grad, lv);
-  fixed_end(s, work, entries, dtable, num_points, 16, 2, lv, num_scenes);
+  fixed_end<16, 2>(s, work, entries, dtable, num_points, lv, num_scenes);
   return (int)cudaGetLastError();
 }

@@ -21,18 +21,15 @@
 // [128, F*T/128] table tile, because the TPU has no fast gather. Here a
 // corner is one F-float load, and the whole table of the fruit_nerf corner
 // layout (16 levels x 8192 rows x 2 floats, 1 MB) stays in the H100's 50 MB
-// L2. Neither kernel is bound by arithmetic; the bound is the bytes of
-// positions, gradients and outputs (about 10 us a train step at 3.35 TB/s).
-// What held the first version of these kernels far above it was how their
-// threads met the table:
-//   * a train step's points are ray-major, 48 consecutive samples of one
-//     ray, so neighbouring points mostly share a cell at the coarse levels,
-//     and with it all eight corner rows;
-//   * one thread per point (backward) put a warp's 32 lanes on the same few
-//     rows in the same instruction: 8F scalar atomics per (point, level)
-//     that the L2 serialises, and gradient reads at a stride of L*F floats;
-//   * one thread per (point, level) (forward) put a point's levels in
-//     adjacent lanes, so no two lanes of a load ever shared a row.
+// L2. Neither kernel is bound by arithmetic. The forward is bound by how its
+// threads meet the table. The backward is bound by its dTable adds
+// (fixed_sum.cuh), an inference from bench/atomic_rates.cu's rates, as no
+// counter of the card is read: at the huge preset's main field a launch
+// adds 227 M entries into 512 MB of sums past the L2, at about 44 G adds a
+// second, where scattered 8-byte adds run at 14 G a second and adds grouped
+// to a line at 125 G. At a proposal field's samples, whose long runs make
+// few adds, it is bound by the rest of its work, the dPositions' corner
+// reads first (PERF.md).
 //
 // The design, cell_encode.cu's tile: a block takes 32 consecutive points,
 // one lane per point, and its warps take the levels (warp w: levels w,
@@ -40,20 +37,26 @@
 // pass through shared memory, read and written as contiguous rows and
 // staged with an odd row stride, so the 32 lanes at one level hit 32 banks.
 // The shared memory is sized to the layout at launch, leaving the rest of
-// the SM's L1 to the table's rows.
+// the SM's L1 to the table's rows. A train step's points are ray-major, 48
+// consecutive samples of one ray, so neighbouring points mostly share a
+// cell at the coarse levels, and with it all eight corner rows.
 //   * forward: lanes of one cell read the same eight addresses, so each
 //     corner is one request for the warp.
 //   * backward: the key of a run is the lane's cell at that level (a cell
 //     fixes all eight corner rows and their in-range flags). A segmented
 //     warp scan, two corners (cx = 0, 1) and 2F floats at a time, leaves
-//     each run's 8F sums in its last lane, which adds them to dTable's
-//     64-bit fixed-point sums with integer atomics (fixed_sum.cuh), so that
-//     dTable does not depend on the order of the adds. A warp-uniform ballot
-//     skips the scan when no run is longer than one lane. Two cells whose
+//     each run's 8F sums in its last lane; it takes log2 of the warp's
+//     longest run steps, and none when every run is one lane. dTable is
+//     summed in 64-bit fixed point, so it does not depend on the order of
+//     the adds. The run-end lanes stage their sums and corner rows in the
+//     warp's shared memory, and the whole warp adds them: 32 consecutive
+//     slots an instruction, a corner pair's 2F entries together (at F = 2
+//     one 32-byte sector when the pair is aligned, below), rather than each
+//     run-end lane issuing 8F scattered 8-byte adds. Two cells whose
 //     corners hash onto one row are a collision, not a run: such lanes add
-//     apart. dPositions re-reads the corner rows only
-//     when it is wanted, is summed per warp over its levels, then over the
-//     warps in shared memory, and is written once, coalesced.
+//     apart. dPositions re-reads the corner rows only when it is wanted, is
+//     summed per warp over its levels, then over the warps in shared memory,
+//     and is written once, coalesced.
 //   * both: at F = 2 the rows of corners cx = 0 and 1 form one aligned
 //     16-byte pair whenever ix is even on a hashed level (ix + 1 == ix ^ 1
 //     leaves the hash's other bits alone) or the first row is even on a
@@ -124,16 +127,6 @@ __device__ __forceinline__ void load_entry(const float* __restrict__ table,
   }
 }
 
-// Adds F floats to flat row `row` of the fixed-point dTable sums, feature f
-// at scale[f].
-template <int F>
-__device__ __forceinline__ void add_entry(unsigned long long* __restrict__ acc,
-                                          long long row, const float* d,
-                                          const double* scale) {
-#pragma unroll
-  for (int f = 0; f < F; ++f) add_fixed(acc + row * F + f, d[f], scale[f]);
-}
-
 // Flat row (offset_l + row) of entry (ix, iy, iz) at level l, or -1 when
 // the entry lies outside [0, T_l).
 __device__ __forceinline__ long long corner_flat(const CornerLevels& lv, int l,
@@ -190,17 +183,28 @@ __device__ __forceinline__ void cell_of(float x, float y, float z, float r,
 // the same column, hit 32 banks.
 __host__ __device__ __forceinline__ int tile_stride(int width) { return width | 1; }
 
-// Shared memory is sized at launch to the layout (at most 41.4 KB, at 32
-// levels and F = 8), so that a small layout leaves the SM's L1 to the
-// table: positions [TILE * 3], the tile's block [TILE * stride] and, in the
-// backward, the columns' fixed-point scales [width] (first, as doubles) and
-// the warps' dPositions [warps * TILE * 3].
+// Shared memory is sized at launch to the layout, so that a small layout
+// leaves the SM's L1 to the table: positions [TILE * 3], the tile's block
+// [TILE * stride] and, in the backward, the columns' fixed-point scales
+// [width] (first, as doubles) and each warp's stage (stage_floats(F) floats,
+// then 8 * TILE rows): the sums of the warp's runs at one level, and after
+// the level loop its lanes' dPositions.
 static size_t fwd_smem(int width) {
   return sizeof(float) * (TILE * 3 + TILE * tile_stride(width));
 }
 
-static size_t bwd_smem(int width, int warps) {
-  return sizeof(double) * width + fwd_smem(width) + sizeof(float) * warps * TILE * 3;
+// A run's sums are 8F floats, pair k's 2F (corner k's F, then corner
+// 4 + k's) at 2F * k, staged at a stride of 8F + 1 (the 32 lanes, each
+// writing its run's float j, hit 32 banks), with the run's 8 corner rows;
+// TILE * 3 floats at least, for the dPositions.
+__host__ __device__ __forceinline__ int stage_stride(int f) { return 8 * f + 1; }
+__host__ __device__ __forceinline__ int stage_floats(int f) {
+  return TILE * stage_stride(f) > TILE * 3 ? TILE * stage_stride(f) : TILE * 3;
+}
+
+static size_t bwd_smem(int width, int features, int warps) {
+  return sizeof(double) * width + fwd_smem(width) +
+         (size_t)warps * (sizeof(float) * stage_floats(features) + sizeof(int) * 8 * TILE);
 }
 
 // The forward's blocks an SM must hold: 3 at F <= 2 (40 registers a
@@ -286,9 +290,11 @@ corner_encode_bwd_kernel(const float* __restrict__ pos,
   float* smem = reinterpret_cast<float*>(s_scale + width);
   float* s_pos = smem;
   float* s_grad = smem + TILE * 3;
-  float* s_dpos = s_grad + TILE * stride;  // [warps][TILE * 3]
+  float* s_stages = s_grad + TILE * stride;  // [warps][stage_floats(F)], then the rows
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int num_warps = blockDim.x >> 5;
+  float* stage = s_stages + warp * stage_floats(F);
+  int* rows = reinterpret_cast<int*>(s_stages + num_warps * stage_floats(F)) + warp * 8 * TILE;
   const long long p0 = (long long)blockIdx.x * TILE;
   const int n = (int)min((long long)TILE, (long long)num_points - p0);
   const long long scene = blockIdx.y;
@@ -333,6 +339,10 @@ corner_encode_bwd_kernel(const float* __restrict__ pos,
     const bool scan = heads != kAll;  // some run is longer than one lane (warp-uniform)
     const int start = 31 - __clz(heads & upto_lane);  // first lane of my run
     const bool adds = live && (lane == 31 || ((heads >> (lane + 1)) & 1u));
+    const unsigned adders = __ballot_sync(kAll, adds);
+    const int rank = __popc(adders & (upto_lane >> 1));  // my run among the warp's
+    // the scan's steps: log2 of the warp's longest run
+    const int longest = (int)__reduce_max_sync(kAll, (unsigned)(lane - start + 1));
 
     const float wx[2] = {1.f - tx, tx};
     const float wy[2] = {1.f - ty, ty};
@@ -349,8 +359,7 @@ corner_encode_bwd_kernel(const float* __restrict__ pos,
         db[f] = wx[1] * wyz * g[f];
       }
       if (scan) {  // a segmented inclusive scan: each run's sums in its last lane
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
+        for (int off = 1; off < longest; off <<= 1) {
 #pragma unroll
           for (int f = 0; f < F; ++f) {
             const float va = __shfl_up_sync(kAll, da[f], off);
@@ -365,9 +374,16 @@ corner_encode_bwd_kernel(const float* __restrict__ pos,
       // the same for every lane of a run: the cell fixes them
       const long long a = corner_flat(lv, l, ix, iy + cy, iz + cz);
       const long long b = corner_flat(lv, l, ix + 1, iy + cy, iz + cz);
-      if (adds) {  // a zero entry takes none
-        if (a >= 0) add_entry<F>(acc, a, da, s_scale + l * F);
-        if (b >= 0) add_entry<F>(acc, b, db, s_scale + l * F);
+      // the run-end lanes stage the pair's 2F sums and rows in lane order
+      if (adds) {
+        float* dst = stage + rank * stage_stride(F) + 2 * F * k;
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          dst[f] = da[f];
+          dst[F + f] = db[f];
+        }
+        rows[8 * rank + 2 * k] = (int)a;
+        rows[8 * rank + 2 * k + 1] = (int)b;
       }
       if (needs_pos_grad && live) {
         float va[F], vb[F];
@@ -384,19 +400,25 @@ corner_encode_bwd_kernel(const float* __restrict__ pos,
         lz += (cz ? 1.f : -1.f) * wy[cy] * s;
       }
     }
+    // the warp adds its runs' staged sums, 2F consecutive slots a pair (one
+    // 32-byte sector at F = 2 where b == a + 1 and a is even)
+    __syncwarp();
+    add_staged<8 * F, 8, F>(acc, stage, stage_stride(F), rows, __popc(adders), s_scale + l * F,
+                            lane);
+    __syncwarp();  // the stage is free for the next level
     dx += r * lx;
     dy += r * ly;
     dz += r * lz;
   }
 
   if (needs_pos_grad) {  // a kernel argument: uniform over the block
-    s_dpos[warp * TILE * 3 + 3 * lane] = dx;
-    s_dpos[warp * TILE * 3 + 3 * lane + 1] = dy;
-    s_dpos[warp * TILE * 3 + 3 * lane + 2] = dz;
+    stage[3 * lane] = dx;
+    stage[3 * lane + 1] = dy;
+    stage[3 * lane + 2] = dz;
     __syncthreads();
     for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
       float s = 0.f;
-      for (int w = 0; w < num_warps; ++w) s += s_dpos[w * TILE * 3 + i];
+      for (int w = 0; w < num_warps; ++w) s += s_stages[w * stage_floats(F) + i];
       dpos[3 * p0 + i] = s;
     }
   }
@@ -451,21 +473,27 @@ static long long table_rows(const CornerLevels& lv) {
 }
 
 template <int F>
-static void launch_bwd(cudaStream_t stream, const float* pos,
-                       const float* table, const float* grad, float* dtable,
-                       float* dpos, void* work, const CornerLaunch& c,
-                       const CornerLevels& lv) {
+static cudaError_t launch_bwd(cudaStream_t stream, const float* pos,
+                              const float* table, const float* grad, float* dtable,
+                              float* dpos, void* work, const CornerLaunch& c,
+                              const CornerLevels& lv) {
   const int width = lv.num_levels * F;
   const long long entries = table_rows(lv) * F;
+  const dim3 block = tile_block(lv.num_levels);
+  const size_t smem = bwd_smem(width, F, block.x / 32);
+  if (smem > 48 * 1024) {  // above the default, the kernel must ask for it
+    const cudaError_t err = cudaFuncSetAttribute(
+        corner_encode_bwd_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
   fixed_begin(stream, work, entries, grad, c.num_points, width, c.num_scenes);
   unsigned long long* acc = reinterpret_cast<unsigned long long*>(work);
-  const dim3 block = tile_block(lv.num_levels);
-  corner_encode_bwd_kernel<F><<<scene_grid(c.num_points, c.num_scenes), block,
-                                bwd_smem(width, block.x / 32), stream>>>(
+  corner_encode_bwd_kernel<F><<<scene_grid(c.num_points, c.num_scenes), block, smem, stream>>>(
       pos, table, grad, acc,
       reinterpret_cast<const unsigned*>(acc + entries * c.num_scenes), dpos,
       c.num_points, c.pos_stride, c.table_stride, entries, c.needs_pos_grad, lv);
-  fixed_end(stream, work, entries, dtable, c.num_points, F, F, lv, c.num_scenes);
+  fixed_end<F, F>(stream, work, entries, dtable, c.num_points, lv, c.num_scenes);
+  return cudaSuccess;
 }
 
 static int bad_scenes(int num_scenes, long long table_stride) {
@@ -544,9 +572,10 @@ extern "C" int corner_encode_bwd(const float* pos, const float* table,
     return (int)cudaMemsetAsync(
         dtable, 0, sizeof(float) * table_rows(lv) * num_features * num_scenes, s);
   const CornerLaunch c{num_points, num_scenes, needs_pos_grad, pos_stride, table_stride};
+  cudaError_t err = cudaSuccess;
 #define CORNER_BWD_CASE(F)                                                  \
   case F:                                                                   \
-    launch_bwd<F>(s, pos, table, grad, dtable, dpos, work, c, lv);          \
+    err = launch_bwd<F>(s, pos, table, grad, dtable, dpos, work, c, lv);    \
     break;
   switch (num_features) {
     CORNER_BWD_CASE(1)
@@ -560,5 +589,5 @@ extern "C" int corner_encode_bwd(const float* pos, const float* table,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CORNER_BWD_CASE
-  return (int)cudaGetLastError();
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

@@ -249,6 +249,93 @@ def grid_encode_corner_torch(
     return out.reshape(p, layout.num_levels * features)
 
 
+def _staged_lines(ends: torch.Tensor, rows: torch.Tensor, width: int, lines: int) -> int:
+    """The (instruction, 128-byte line) pairs of one warp-wide add pass
+    (``add_staged`` in csrc/fixed_sum.cuh) over the run ends ``ends`` [P]
+    (the lanes that add, in tiles of 32 points), whose rows are ``rows``
+    [P, R] (-1: none) of ``width`` 8-byte entries each: run r's R * width
+    slots are slots r * R * width .. of the tile's flat list, 32 to an
+    instruction."""
+    idx = ends.nonzero().squeeze(1)
+    if idx.numel() == 0:
+        return 0
+    count = torch.cumsum(ends.long(), 0)
+    first = idx - idx % 32  # the tile's first point
+    before = torch.where(first > 0, count[(first - 1).clamp_min(0)], 0)
+    rank = count[idx] - 1 - before
+    slots = rows.shape[1] * width
+    j = torch.arange(slots, device=ends.device)
+    instr = (rank[:, None] * slots + j) // 32
+    row = rows[idx][:, j // width]
+    line = (row * width + j % width) // 16
+    key = ((idx // 32)[:, None] * (slots + 1) + instr) * (lines + 1) + line
+    return int(torch.unique(key[row >= 0]).numel())
+
+
+def backward_adds(
+    positions: torch.Tensor, layout: CellLayout, features: int, corner: bool
+) -> dict:
+    """The dTable adds one backward launch (K2, or K4 with ``corner``) makes
+    on ``positions`` [P, 3], by the kernel's own tiling: tiles of 32
+    consecutive points, and in a tile, at each level, runs of consecutive
+    points on one key (cell mode: the flat row, a row outside [0, T_l)
+    adding nothing; corner mode: the cell, whose 8 corner rows each take F
+    adds where they lie inside [0, T_l)). -> {"runs": runs that add,
+    "adds": 64-bit entries added (16 a cell run, F an in-range corner of a
+    corner run), "modeled_l2_lines": the 128-byte lines those adds touch,
+    summed over the warp instructions that make them when each warp adds
+    its runs' entries together, 32 consecutive slots an instruction (a cell
+    run's row, or a corner pair's 2F entries, at a time; ``add_staged``)}.
+    The lines model the L2 requests, on the assumption that the L2 takes
+    one request for an instruction's entries in one line; no counter of
+    the card measures them. A term that rounds to zero is not added by the
+    kernel and is counted here all the same."""
+    pos = positions.float()
+    p = pos.shape[0]
+    dev = pos.device
+    lane = torch.arange(p, device=dev) % 32
+    width = features if corner else 16
+    lines = layout.total_rows * width // 16 + 1
+    runs = adds = staged = 0
+    for lvl in range(layout.num_levels):  # a level at a time: [P, 8] temporaries
+        one = CellLayout(layout.resolutions[lvl:lvl + 1], layout.rows[lvl:lvl + 1],
+                         layout.direct[lvl:lvl + 1])
+        offset = layout.offsets[lvl]
+        cell = torch.floor(pos * float(layout.resolutions[lvl])).long()  # [P, 3]
+        if corner:
+            bits = torch.tensor((_CX, _CY, _CZ), dtype=torch.int64, device=dev)  # [3, 8]
+            cx, cy, cz = (cell[:, :, None] + bits).unbind(1)  # [P, 8]
+            stride = torch.tensor(layout.resolutions[lvl] + 1, dtype=torch.int64, device=dev)
+            flat, valid = _hash_or_direct(cx[:, None], cy[:, None], cz[:, None], stride, one)
+            flat, valid = flat[:, 0] + offset, valid[:, 0]
+            same = (cell[1:] == cell[:-1]).all(-1)  # the cell of the point before
+            weight = features * valid.sum(-1)  # adds of a run ending at this point
+            adding = torch.ones(p, dtype=torch.bool, device=dev)
+            # corner pair k: corners k (cx = 0) and 4 + k (cx = 1)
+            rows = torch.where(valid, flat, torch.full_like(flat, -1))
+            pairs = [rows[:, [k, 4 + k]] for k in range(4)]
+        else:
+            res = torch.tensor(layout.resolutions[lvl], dtype=torch.int64, device=dev)
+            flat, valid = _hash_or_direct(*cell[:, None].unbind(-1), res, one)
+            key = torch.where(valid[:, 0], flat[:, 0] + offset, torch.full_like(flat[:, 0], -1))
+            same = key[1:] == key[:-1]
+            weight = torch.full_like(key, 16)
+            adding = valid[:, 0]
+            pairs = [key[:, None]]
+        head = torch.ones(p, dtype=torch.bool, device=dev)
+        head[1:] = ~same
+        head[lane == 0] = True
+        run = head & adding
+        # a run adds at its last lane: the point before the next run's head
+        end = torch.ones(p, dtype=torch.bool, device=dev)
+        end[:-1] = head[1:]
+        end &= adding
+        runs += int(run.sum())
+        adds += int(weight[run].sum())
+        staged += sum(_staged_lines(end, r, width, lines) for r in pairs)
+    return {"runs": runs, "adds": adds, "modeled_l2_lines": staged}
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels: build, load, launch
 # ---------------------------------------------------------------------------

@@ -116,10 +116,15 @@ def _points(dev, g, kind, n_rays=64, samples=48, extra=13):
     """P = 64 x 48 + 13 points (not a multiple of the kernels' 32-point
     tile). "ray_ordered": 48 consecutive samples along each ray, as a train
     step orders them; "one_cell": every point in one level-0 cell (the
-    worst contention). Point 5 sits at z = 1.0, past level 0's table."""
+    worst contention); "alternating": "one_cell" with every other point at
+    z = 1.0, so that a tile's adding runs at level 0 all take one row, two
+    of them in each instruction of the warp's staged adds. Point 5 sits at
+    z = 1.0, past level 0's table."""
     p = n_rays * samples + extra
-    if kind == "one_cell":
+    if kind in ("one_cell", "alternating"):
         pos = 0.5 + 0.01 * torch.rand((p, 3), generator=g, device=dev)
+        if kind == "alternating":
+            pos[1::2, 2] = 1.0
     else:
         origin = 0.2 + 0.6 * torch.rand((n_rays, 1, 3), generator=g, device=dev)
         d = torch.randn((n_rays, 1, 3), generator=g, device=dev)
@@ -130,11 +135,12 @@ def _points(dev, g, kind, n_rays=64, samples=48, extra=13):
     return pos.contiguous()
 
 
-@pytest.mark.parametrize("kind", ["ray_ordered", "one_cell"])
+@pytest.mark.parametrize("kind", ["ray_ordered", "one_cell", "alternating"])
 @pytest.mark.parametrize("num_levels", [1, 5, 16, 32])
 def test_tiled_cell_kernels_match_plain(dev, num_levels, kind):
     """The tiled K1/K2 (a warp a level, a lane a point, runs of lanes on one
-    row merged before their fixed-point adds) against the plain version,
+    row merged, and the runs' fixed-point adds made by the whole warp, a
+    row to half of it) against the plain version,
     with and without dPositions; the second backward repeats the first's
     dTable bitwise."""
     layout = _levels(num_levels)
@@ -231,10 +237,12 @@ def _corner_points(dev, g, kind, layout, n_rays=64, samples=48, extra=13):
 
 @pytest.mark.parametrize("features", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("num_levels", [1, 5, 16, 32])
-@pytest.mark.parametrize("kind", ["ray_ordered", "one_cell", "collision"])
+@pytest.mark.parametrize("kind", ["ray_ordered", "one_cell", "collision", "alternating"])
 def test_tiled_corner_kernels_match_plain(dev, kind, num_levels, features):
     """The tiled K3/K4 (a warp a level, a lane a point, runs of lanes in one
-    cell merged before their fixed-point adds) against the plain version,
+    cell merged, and the runs' fixed-point adds made by the whole warp, a
+    corner pair's 2F entries together; at 32 levels and F = 8 the backward
+    asks for more than 48 KB of shared memory) against the plain version,
     with and without dPositions; the second backward repeats the first's
     dTable bitwise."""
     layout = _corner_levels(num_levels)
@@ -785,6 +793,33 @@ def test_scene_batched_kernels_equal_single_launches(dev, family):
         assert torch.equal(dt_shared[s], dts) and torch.equal(dp_shared[s], dps), s
     with pytest.raises(ValueError, match="contiguous"):
         fwd(tables[1].expand(4, *tables.shape[1:]), pos)
+
+
+def test_scene_batched_corner_backward_at_the_huge_layout(dev):
+    """K4 at the huge preset's main field (16 levels of 2^21 rows, F = 2:
+    a 512 MiB int64 work buffer a scene) with S = 4 scenes in one launch,
+    half of each scene's points in ray order: one counted launch, each
+    scene bitwise equal to its single launch and within BWD_RTOL of the
+    plain version."""
+    from fruitnerf_tpu_torch.configs import fruit_nerf_huge
+
+    enc = fruit_nerf_huge(1, variant="parity").model.field.hash
+    layout, f, n = enc.table_layout(), enc.features_per_level, 1 << 16
+    g = torch.Generator(device=dev).manual_seed(2)
+    tables = torch.rand((4, layout.total_rows, f), generator=g, device=dev) * 2 - 1
+    pos = torch.rand((4, n, 3), generator=g, device=dev)
+    pos[:, : n // 2] = pos[:, : n // 2].sort(dim=1).values
+    grad = torch.randn((4, n, f * layout.num_levels), generator=g, device=dev)
+    hg.reset_launch_counts()
+    dt, dp = hg.corner_encode_bwd_cuda(tables, pos, grad, layout, f, True)
+    assert hg.LAUNCHES["corner_encode_bwd"] == 1 and hg.SCENES["corner_encode_bwd"] == 4
+    for s in range(4):
+        dts, dps = hg.corner_encode_bwd_cuda(tables[s], pos[s], grad[s], layout, f, True)
+        assert torch.equal(dt[s], dts) and torch.equal(dp[s], dps), s
+        t_ = tables[s].clone().requires_grad_(True)
+        p_ = pos[s].clone().requires_grad_(True)
+        hg.grid_encode_corner_torch(t_, p_, layout, f).backward(grad[s])
+        assert _rel(dt[s], t_.grad) <= BWD_RTOL and _rel(dp[s], p_.grad) <= BWD_RTOL
 
 
 def _tiny_smoke(num_images: int):
