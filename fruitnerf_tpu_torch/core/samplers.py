@@ -14,6 +14,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..utils.profiling import span
 from .math import batched_searchsorted, take_sorted
 from .rays import RayBundle, RaySamples
 
@@ -141,20 +142,23 @@ def proposal_sample(
     draws = list(uniforms) if uniforms is not None else [None] * (n_levels + 1)
     weights_list = []
     ray_samples_list = []
-    samples = spaced_samples(
-        bundle, num_proposal_samples[0], spacing=initial_spacing, train=train,
-        uniforms=draws[0],
-    )
-    for i in range(n_levels):
-        weights = samples.get_weights(density_fns[i](samples.positions()))
-        # d/dw w**a is inf at w=0 for a<1: clamp inside the power only
-        annealed = torch.pow(torch.clamp_min(weights, 1e-12), anneal)
-        weights_list.append(weights)
-        ray_samples_list.append(samples)
-        num_next = num_proposal_samples[i + 1] if i + 1 < n_levels else num_nerf_samples
-        new_bins = pdf_sample_bins(
-            samples.spacing_bins(), annealed, num_next, train=train,
-            uniforms=draws[i + 1],
+    with span("sampler.spaced"):
+        samples = spaced_samples(
+            bundle, num_proposal_samples[0], spacing=initial_spacing, train=train,
+            uniforms=draws[0],
         )
-        samples = ray_samples_from_spacing_bins(bundle, new_bins, initial_spacing)
+    for i in range(n_levels):
+        with span(f"proposal.{i}"):
+            weights = samples.get_weights(density_fns[i](samples.positions()))
+        with span(f"sampler.pdf.{i}"):
+            # d/dw w**a is inf at w=0 for a<1: clamp inside the power only
+            annealed = torch.pow(torch.clamp_min(weights, 1e-12), anneal)
+            weights_list.append(weights)
+            ray_samples_list.append(samples)
+            num_next = num_proposal_samples[i + 1] if i + 1 < n_levels else num_nerf_samples
+            new_bins = pdf_sample_bins(
+                samples.spacing_bins(), annealed, num_next, train=train,
+                uniforms=draws[i + 1],
+            )
+            samples = ray_samples_from_spacing_bins(bundle, new_bins, initial_spacing)
     return samples, weights_list, ray_samples_list

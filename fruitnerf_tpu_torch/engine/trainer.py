@@ -21,8 +21,10 @@ from ..bridge import tree_leaves, tree_map
 from ..cameras.camera_opt import exp_map_so3xr3, init_camera_opt
 from ..cameras.cameras import Cameras, frustum_coverage, generate_image_rays, generate_rays
 from ..configs import OptimizerConfig, TrainConfig
+from ..core.rays import near_far_collider
 from ..fields.fruit_field import get_density
 from ..models.fruit_model import (
+    forward_collided,
     forward_train,
     init_fruit_model,
     loss_dict,
@@ -30,6 +32,7 @@ from ..models.fruit_model import (
     sampler_draw_shapes,
 )
 from ..utils import metrics as M
+from ..utils.profiling import span
 from .checkpoints import save_checkpoint, save_checkpoint_async
 
 
@@ -329,24 +332,31 @@ def _sparsity_loss(params: dict, data: DeviceDataset, config: TrainConfig, pts) 
 def compute_loss(state: TrainState, data: DeviceDataset, config: TrainConfig, draws: StepDraws):
     """-> (total loss, {loss name: tensor}, metrics) for one step's draws."""
     params = state.params
-    cam = data.train_indices[draws.slot]
-    rgb_gt = data.images[cam, draws.py, draws.px].float() / 255.0
-    mask_gt = data.masks[cam, draws.py, draws.px].float()
-    if config.train_subpixel_jitter:
-        ray_y = draws.py.float() + draws.jitter[0]
-        ray_x = draws.px.float() + draws.jitter[1]
-    else:
-        ray_y, ray_x = draws.py, draws.px
-    adj = exp_map_so3xr3(params["camera_opt"]) if config.use_camera_opt else None
-    bundle = generate_rays(data.cameras, cam, ray_y, ray_x, pose_adjustment=adj)
-    outputs = forward_train(
-        params["model"], bundle, config.model, draws.sampler, state.step, train=True
-    )
-    losses = loss_dict(outputs, rgb_gt, mask_gt, config.model)
-    if config.model.density_sparsity_mult > 0:
-        losses["sparsity_loss"] = _sparsity_loss(params, data, config, draws.sparse_points)
-    total = sum(losses.values())
-    return total, losses, metrics_dict(outputs, rgb_gt)
+    mc = config.model
+    with span("rays"):
+        cam = data.train_indices[draws.slot]
+        rgb_gt = data.images[cam, draws.py, draws.px].float() / 255.0
+        mask_gt = data.masks[cam, draws.py, draws.px].float()
+        if config.train_subpixel_jitter:
+            ray_y = draws.py.float() + draws.jitter[0]
+            ray_x = draws.px.float() + draws.jitter[1]
+        else:
+            ray_y, ray_x = draws.py, draws.px
+        adj = exp_map_so3xr3(params["camera_opt"]) if config.use_camera_opt else None
+        bundle = near_far_collider(
+            generate_rays(data.cameras, cam, ray_y, ray_x, pose_adjustment=adj),
+            mc.near_plane, mc.far_plane)
+    outputs = forward_collided(params["model"], bundle, mc, draws.sampler, state.step, train=True)
+    sparsity = None
+    if mc.density_sparsity_mult > 0:
+        with span("sparsity"):
+            sparsity = _sparsity_loss(params, data, config, draws.sparse_points)
+    with span("losses"):
+        losses = loss_dict(outputs, rgb_gt, mask_gt, mc)
+        if sparsity is not None:
+            losses["sparsity_loss"] = sparsity
+        total = sum(losses.values())
+        return total, losses, metrics_dict(outputs, rgb_gt)
 
 
 def optimizer_step(state: TrainState, config: TrainConfig) -> None:
@@ -405,23 +415,27 @@ def train_step(
     gradients and metrics are averaged over the ranks (the twin is
     ``make_train_step(config, mesh)``)."""
     if draws is None:
-        draws = draw_step(config, data, generator)
+        with span("draws"):
+            draws = draw_step(config, data, generator)
     if mesh is not None:
         from ..parallel.mesh import average_gradients, shard_draws
 
         draws = shard_draws(draws, mesh)
     total, losses, metrics = compute_loss(state, data, config, draws)
-    state.optimizer.zero_grad(set_to_none=True)
-    total.backward()
+    with span("backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
     if mesh is not None:
         average_gradients(state.params, mesh)
-    optimizer_step(state, config)
-    metrics = step_metrics(metrics, losses, total)
-    if mesh is not None:
-        metrics = _mesh_metrics(metrics, mesh)
-    if config.use_camera_opt:
-        metrics.update(camera_opt_metrics(state.params["camera_opt"]))
-    return metrics
+    with span("optimizer"):
+        optimizer_step(state, config)
+    with span("metrics"):
+        metrics = step_metrics(metrics, losses, total)
+        if mesh is not None:
+            metrics = _mesh_metrics(metrics, mesh)
+        if config.use_camera_opt:
+            metrics.update(camera_opt_metrics(state.params["camera_opt"]))
+        return metrics
 
 
 # ---------------------------------------------------------------------------
@@ -606,9 +620,10 @@ def train_loop(
             metrics = train_step(state, data, config, generator, mesh=mesh)
             it = state.step
             if writer is not None and every(config.steps_per_log, it):
-                names = list(metrics)
-                values = torch.stack([metrics[k].float() for k in names]).tolist()
-                writer.write(it, dict(zip(names, values)))
+                with span("log"):
+                    names = list(metrics)
+                    values = torch.stack([metrics[k].float() for k in names]).tolist()
+                    writer.write(it, dict(zip(names, values)))
             eval_now = do_eval and every(config.steps_per_eval, it)
             save_now = checkpoint_dir is not None and every(config.steps_per_save, it)
             if stop.is_set() or eval_now or save_now:
@@ -623,15 +638,18 @@ def train_loop(
                 t0 = time.perf_counter()
                 if eval_now:
                     which = (it // config.steps_per_eval - 1) % len(eval_indices)
-                    stats, _ = evaluate_image(
-                        state.params, data, int(eval_indices[which]), config
-                    )
+                    with span("eval"):
+                        stats, _ = evaluate_image(
+                            state.params, data, int(eval_indices[which]), config
+                        )
                     if writer is not None:
                         writer.write(it, {f"eval_{k}": v for k, v in stats.items()})
                 t1 = time.perf_counter()
                 timings["eval_s"] += t1 - t0
                 if save_now:
-                    pending.append(save_checkpoint_async(checkpoint_dir, state, generator, saver))
+                    with span("save"):
+                        pending.append(
+                            save_checkpoint_async(checkpoint_dir, state, generator, saver))
                 timings["save_s"] += time.perf_counter() - t1
                 t_train = time.perf_counter()
             for cb in callbacks:
@@ -641,7 +659,8 @@ def train_loop(
         t0 = time.perf_counter()
         if checkpoint_dir is not None and config.steps_per_save > 0 \
                 and not every(config.steps_per_save, it):
-            pending.append(save_checkpoint_async(checkpoint_dir, state, generator, saver))
+            with span("save"):
+                pending.append(save_checkpoint_async(checkpoint_dir, state, generator, saver))
         flush()
         timings["save_s"] += time.perf_counter() - t0
         return state

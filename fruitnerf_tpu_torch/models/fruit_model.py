@@ -36,6 +36,7 @@ from ..fields.freq_density_field import (
     init_freq_density_field,
 )
 from ..fields.fruit_field import FruitFieldConfig, fruit_field_forward, init_fruit_field
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +149,20 @@ def forward_train(
     ``core.samplers.proposal_sample``), None in eval. Returns renders plus
     the (weights, sdist) histories the interlevel loss needs."""
     bundle = near_far_collider(bundle, config.near_plane, config.far_plane)
+    return forward_collided(params, bundle, config, uniforms, step, train)
+
+
+def forward_collided(
+    params: dict,
+    bundle: RayBundle,
+    config: FruitModelConfig,
+    uniforms,
+    step: int,
+    train: bool,
+) -> dict:
+    """``forward_train`` on a bundle whose near and far planes are set
+    (``near_far_collider``), which the train step sets inside its ``rays``
+    span."""
     updated = proposal_updated(step, config)
 
     def make_density_fn(i):
@@ -169,23 +184,25 @@ def forward_train(
         anneal=proposal_anneal(step, config) if train else 1.0,
         initial_spacing=config.proposal_initial_sampler,
     )
-    field_out = fruit_field_forward(
-        params["field"], samples.positions(), bundle.directions,
-        bundle.camera_indices, config.field, train=train,
-    )
-    weights = samples.get_weights(field_out["density"])
-    weights_list.append(weights)
-    rs_list.append(samples)
-    sem = render_semantics(weights.detach(), field_out["semantics"])
-    return {
-        "rgb": render_rgb(weights, field_out["rgb"], config.background_color),
-        "accumulation": render_accumulation(weights),
-        "depth": render_depth_median(weights, samples),
-        "semantics": sem,
-        "semantics_colormap": semantic_colormap(sem, config.colormap_threshold),
-        "weights_list": weights_list,
-        "sdist_list": [rs.spacing_bins() for rs in rs_list],
-    }
+    with span("field"):
+        field_out = fruit_field_forward(
+            params["field"], samples.positions(), bundle.directions,
+            bundle.camera_indices, config.field, train=train,
+        )
+    with span("render"):
+        weights = samples.get_weights(field_out["density"])
+        weights_list.append(weights)
+        rs_list.append(samples)
+        sem = render_semantics(weights.detach(), field_out["semantics"])
+        return {
+            "rgb": render_rgb(weights, field_out["rgb"], config.background_color),
+            "accumulation": render_accumulation(weights),
+            "depth": render_depth_median(weights, samples),
+            "semantics": sem,
+            "semantics_colormap": semantic_colormap(sem, config.colormap_threshold),
+            "weights_list": weights_list,
+            "sdist_list": [rs.spacing_bins() for rs in rs_list],
+        }
 
 
 def forward_inference(params: dict, bundle: RayBundle, config: FruitModelConfig) -> dict:

@@ -45,6 +45,7 @@ from ..engine.trainer import (
     step_metrics,
 )
 from ..models.fruit_model import init_fruit_model
+from ..utils.profiling import span
 
 
 def stack_datasets(datasets: list[DeviceDataset]) -> DeviceDataset:
@@ -154,32 +155,38 @@ def multi_scene_step(
     group slice and its data there, its gradients and metrics back); the
     parameters and the optimizer stay on the state's device."""
     num_scenes = datas.images.shape[0]
-    if draws is None:
-        draws = [draw_step(config, scene_dataset(datas, s), generators[s])
-                 for s in range(num_scenes)]
-    if len(draws) != num_scenes:
-        raise ValueError(f"{len(draws)} scenes of draws for {num_scenes} scenes")
+    with span("draws"):
+        if draws is None:
+            draws = [draw_step(config, scene_dataset(datas, s), generators[s])
+                     for s in range(num_scenes)]
+        if len(draws) != num_scenes:
+            raise ValueError(f"{len(draws)} scenes of draws for {num_scenes} scenes")
+        draw_fields = stack_trees([_draw_fields(d) for d in draws])
     fields = _fields(datas)
-    draw_fields = stack_trees([_draw_fields(d) for d in draws])
     fn = _step_fn(config, state.step)
     home = datas.images.device
     grads, totals, losses, metrics = [], [], [], []
-    for sl, dev in _groups(num_scenes, devices, home):
-        def part(tree, sl=sl, dev=dev):  # views where the group is at home
-            return tree_map(tree, lambda t: t[sl].to(dev))
-
-        g, (total, (ls, ms)) = fn(part(state.params), part(fields), part(draw_fields))
-        for out, tree in ((grads, g), (totals, total), (losses, ls), (metrics, ms)):
-            out.append(tree_map(tree, lambda t: t.to(home)))
 
     def cat(trees):
         return trees[0] if len(trees) == 1 else zip_trees(trees, torch.cat)
 
-    for p, g in zip(tree_leaves(state.params), tree_leaves(cat(grads))):
-        p.grad = g
-    optimizer_step(state, config)
-    out = step_metrics(cat(metrics), cat(losses), cat(totals))
-    if config.use_camera_opt:
-        out.update(camera_opt_metrics(state.params["camera_opt"], dims=(1, 2)))
-    return out
+    # the forward stages' spans open inside this one; its self time is the
+    # backward's and the transforms' host time
+    with span("loss_and_grad"):
+        for sl, dev in _groups(num_scenes, devices, home):
+            def part(tree, sl=sl, dev=dev):  # views where the group is at home
+                return tree_map(tree, lambda t: t[sl].to(dev))
+
+            g, (total, (ls, ms)) = fn(part(state.params), part(fields), part(draw_fields))
+            for out, tree in ((grads, g), (totals, total), (losses, ls), (metrics, ms)):
+                out.append(tree_map(tree, lambda t: t.to(home)))
+        for p, g in zip(tree_leaves(state.params), tree_leaves(cat(grads))):
+            p.grad = g
+    with span("optimizer"):
+        optimizer_step(state, config)
+    with span("metrics"):
+        out = step_metrics(cat(metrics), cat(losses), cat(totals))
+        if config.use_camera_opt:
+            out.update(camera_opt_metrics(state.params["camera_opt"], dims=(1, 2)))
+        return out
 

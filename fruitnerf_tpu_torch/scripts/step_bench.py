@@ -1,7 +1,7 @@
-"""Time, profile and repeat train steps of the presets on a synthetic scene.
+"""Time and repeat train steps of the presets on a synthetic scene.
 
     python -m fruitnerf_tpu_torch.scripts.step_bench
-        [--config grid smoke parity big huge tpu] [--steps 30] [--profile 10]
+        [--config grid smoke parity big huge tpu] [--steps 30]
         [--repeat] [--seed 0] [--json PATH]
 
 The configurations: ``grid`` is the ``fruit_nerf`` preset's grid variant
@@ -17,11 +17,6 @@ returns:
 * the mean wall milliseconds of ``--steps`` train steps after 5 of warmup,
   synchronised at both ends, and the process's CPU milliseconds a step over
   them (the host's own work, which other load on the host does not add to);
-* with ``--profile N``: N steps under ``torch.profiler``, the device busy
-  milliseconds a step (the kernels' self time), the device time a step of
-  the grid encodings, the fills and adds of main-table-sized tensors, Adam
-  and the matmuls, the top ops by input shape and the top kernels, and the
-  peak device memory;
 * with ``--repeat``: ``two_runs`` of REPEAT_STEPS steps, which must be
   bitwise equal (the script exits non-zero otherwise).
 
@@ -107,77 +102,10 @@ def two_runs(cfg, data, seed: int, steps: int = REPEAT_STEPS) -> dict:
             "param_max_abs": max((a - b).abs().max().item() for a, b in zip(pa, pb))}
 
 
-def profile_steps(cfg, data, seed: int, steps: int) -> dict:
-    """``steps`` train steps (after 5 of warmup) under ``torch.profiler`` on
-    the card: device busy ms a step, device ms a step of a few op groups,
-    the top ops (by input shape) and kernels, and the peak memory."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from ..engine.trainer import init_train_state, train_step
-
-    dev = data.images.device
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    state = init_train_state(cfg, data.cameras.num_cameras, dev, generator=gen)
-    for _ in range(5):
-        train_step(state, data, cfg, gen)
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        for _ in range(steps):
-            train_step(state, data, cfg, gen)
-        torch.cuda.synchronize(dev)
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
-
-    def dev_us(row):  # the attribute's name moved in torch 2.x
-        us = getattr(row, "self_device_time_total", None)
-        return row.self_cuda_time_total if us is None else us
-
-    # device rows: kernels and memsets, not the ranges of record_function
-    # annotations (the optimizer's "Optimizer.step#Adam.step"), which overlap them
-    kernels = [r for r in prof.key_averages() if str(r.device_type).endswith("CUDA")
-               and "#" not in r.key and not r.key.startswith("ProfilerStep")]
-    busy = sum(dev_us(r) for r in kernels) / 1e3 / steps
-    ops = [r for r in prof.key_averages(group_by_input_shape=True)
-           if not str(r.device_type).endswith("CUDA")]
-    enc = cfg.model.field.encoding_config
-    table = "no table" if enc is None else str(list(enc.table_shape))
-
-    def group(pred) -> dict:
-        hit = [r for r in ops if pred(r.key, str(r.input_shapes))]
-        return {"calls": sum(r.count for r in hit) / steps,
-                "device_ms": sum(dev_us(r) for r in hit) / 1e3 / steps}
-
-    groups = {
-        "grid encoding forward (K1/K3)": group(
-            lambda k, sh: k in ("_CellEncodeCUDA", "_CornerEncodeCUDA")),
-        "grid encoding backward (K2/K4)": group(
-            lambda k, sh: k in ("_CellEncodeCUDABackward", "_CornerEncodeCUDABackward")),
-        "fills of a main-table-sized tensor": group(
-            lambda k, sh: k in ("aten::fill_", "aten::zero_") and sh.startswith(f"[{table}")),
-        "adds of two main-table-sized tensors": group(
-            lambda k, sh: k.startswith("aten::add") and sh.startswith(f"[{table}, {table}")),
-        "optimizer (aten::_foreach_*, _fused_adam)": group(
-            lambda k, sh: k.startswith(("aten::_foreach", "aten::_fused_adam"))),
-        "matmuls (aten::mm, addmm, bmm)": group(
-            lambda k, sh: k in ("aten::mm", "aten::addmm", "aten::bmm")),
-    }
-    top_ops = [{"op": r.key, "shapes": str(r.input_shapes)[:120], "calls": r.count / steps,
-                "device_ms": dev_us(r) / 1e3 / steps}
-               for r in sorted(ops, key=dev_us, reverse=True)[:25] if dev_us(r) > 0]
-    top_kernels = [{"kernel": r.key[:120], "calls": r.count / steps,
-                    "device_ms": dev_us(r) / 1e3 / steps}
-                   for r in sorted(kernels, key=dev_us, reverse=True)[:20]]
-    return {"busy_ms": busy, "peak_gib": peak, "groups": groups, "ops": top_ops,
-            "kernels": top_kernels}
-
-
 def add_args(p: argparse.ArgumentParser):
     p.add_argument("--config", nargs="+", default=["grid", "smoke", "parity"],
                    choices=["grid", "smoke", "parity", "big", "huge", "tpu"])
     p.add_argument("--steps", type=int, default=30, help="timed steps a configuration")
-    p.add_argument("--profile", type=int, default=0,
-                   help="profiled steps a configuration (0: no profile; the card only)")
     p.add_argument("--repeat", action="store_true",
                    help="two runs of REPEAT_STEPS steps from one seed must be bitwise equal")
     p.add_argument("--seed", type=int, default=0)
@@ -206,16 +134,6 @@ def main(args) -> dict:
         r = {"wall_ms": wall, "cpu_ms": cpu}
         print(f"step_bench: {name}: {wall:.4f} ms/step wall, {cpu:.4f} ms/step of process CPU "
               f"(means of {args.steps})")
-        if args.profile:
-            r["profile"] = p = profile_steps(cfg, data, args.seed, args.profile)
-            print(f"step_bench: {name}: device busy {p['busy_ms']:.4f} ms/step over "
-                  f"{args.profile} profiled steps, peak memory {p['peak_gib']:.3f} GiB")
-            for g, v in p["groups"].items():
-                print(f"step_bench: {name}: {g}: {v['calls']:g} calls, "
-                      f"{v['device_ms']:.4f} device ms/step")
-            for k in p["kernels"][:10]:
-                print(f"step_bench: {name}: kernel {k['kernel']}: {k['calls']:g} calls, "
-                      f"{k['device_ms']:.4f} ms/step")
         if args.repeat:
             r["repeat"] = rep = two_runs(cfg, data, args.seed)
             print(f"step_bench: {name}: two runs of {REPEAT_STEPS} steps from one seed on the "
