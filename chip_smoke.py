@@ -881,11 +881,26 @@ def parity_phase(scene, dev, seed: int):
 
 
 @contextlib.contextmanager
+def eager_steps():
+    """Every train step in the block runs eagerly: a step replayed from its
+    CUDA graph runs no Python, so a spy on the kernels' calls sees only the
+    steps that make them."""
+    from fruitnerf_tpu_torch.engine import trainer
+
+    real = trainer.graph_key
+    trainer.graph_key = lambda *args, **kwargs: None
+    try:
+        yield
+    finally:
+        trainer.graph_key = real
+
+
+@contextlib.contextmanager
 def captured_positions(sink: list, entry: str = "cell_encode", when=lambda: True):
     """Record a copy of the positions that ``fields/encodings.grid_encode``
     hands to ``entry`` (``cell_encode``, or ``grid_encode_flat`` in corner
     mode) in the block, at each call made with gradients on while
-    ``when()`` holds."""
+    ``when()`` holds; the block's train steps run eagerly."""
     from fruitnerf_tpu_torch.fields import encodings
 
     real = getattr(encodings, entry)
@@ -897,7 +912,8 @@ def captured_positions(sink: list, entry: str = "cell_encode", when=lambda: True
 
     setattr(encodings, entry, spy)
     try:
-        yield
+        with eager_steps():
+            yield
     finally:
         setattr(encodings, entry, real)
 
@@ -2540,7 +2556,7 @@ def scene_operands(hg, sink: list, batched: bool = True):
     Functions (or their ``vmap`` rules) hand them over: (corner, tables
     [S, ...] or one, positions [S, P, 3] or [P, 3], grad, layout,
     features). The same call site's K1/K3 took the same tables and
-    positions."""
+    positions. The block's train steps run eagerly."""
     real = {"cell": hg.cell_encode_bwd_cuda, "corner": hg.corner_encode_bwd_cuda}
 
     def cell(table, positions, grad, layout, needs_pos_grad):
@@ -2555,7 +2571,8 @@ def scene_operands(hg, sink: list, batched: bool = True):
 
     hg.cell_encode_bwd_cuda, hg.corner_encode_bwd_cuda = cell, corner
     try:
-        yield
+        with eager_steps():
+            yield
     finally:
         hg.cell_encode_bwd_cuda, hg.corner_encode_bwd_cuda = real["cell"], real["corner"]
 

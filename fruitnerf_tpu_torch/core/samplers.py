@@ -126,10 +126,11 @@ def proposal_sample(
     num_nerf_samples: int,
     train: bool,
     uniforms: Sequence[torch.Tensor] | None,
-    anneal: float = 1.0,
+    anneal: float | torch.Tensor = 1.0,
     initial_spacing: str = "piecewise",
 ):
-    """Hierarchical proposal sampling with ``w**anneal`` weight annealing.
+    """Hierarchical proposal sampling with ``w**anneal`` weight annealing
+    (``anneal`` a float, or a 0-dim tensor on the weights' device).
 
     ``uniforms`` holds one draw per sampler stage (len(density_fns) + 1):
     the initial spaced sampler's, then each PDF resampling's. Returns

@@ -5,11 +5,17 @@ Twin of ``fruitnerf_tpu/engine/trainer.py``.
 Every random draw of a step is made in one place, ``draw_step``, from an
 explicit ``torch.Generator``; ``train_step`` takes the draws, so a test can
 inject the JAX step's draws instead.
+
+On the card a train step reads its per-step scalars (the learning rates,
+RAdam's bias corrections and rectifier, the proposal anneal) from the device
+(``StepScalars``), and a step that draws from its generator is replayed from
+a CUDA graph captured once per proposal-gate value (``step_graph.py``).
 """
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import math
 import signal
 import threading
 import time
@@ -29,11 +35,14 @@ from ..models.fruit_model import (
     init_fruit_model,
     loss_dict,
     metrics_dict,
+    proposal_anneal,
+    proposal_updated,
     sampler_draw_shapes,
 )
 from ..utils import metrics as M
 from ..utils.profiling import span
 from .checkpoints import save_checkpoint, save_checkpoint_async
+from .step_graph import StepGraphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,9 +138,16 @@ class RAdam(torch.optim.Optimizer):
     6, rho_t = rho_inf - 2t b2^t / (1 - b2^t) subtracts about 1993 from 1999,
     so its float32 rounding moves r_t by up to 1e-2 of itself; optax rounds
     there, and ``torch.optim.RAdam`` (Python floats) does not. The
-    elementwise work runs as ``torch._foreach_*`` calls over a group."""
+    elementwise work runs as ``torch._foreach_*`` calls over a group.
+
+    One update covers both sides of the threshold (``step_scalars``): past
+    it the denominator is sqrt(nu / (1 - b2^t)) + eps; below it the step
+    divides nu by inf and adds 1, so the denominator is exactly 1 and the
+    update mu_hat, with no extra pass over the moments past it. So a step
+    captured at one count serves every count."""
 
     B1, B2, THRESHOLD = 0.9, 0.999, 5.0
+    NUM_SCALARS = 6  # step_scalars' length
 
     def __init__(self, groups):
         super().__init__(groups, dict(lr=0.0, eps=1e-8, weight_decay=0.0))
@@ -151,9 +167,28 @@ class RAdam(torch.optim.Optimizer):
             r = float(np.sqrt(num / (f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro)))
         return float(f32(1) - f32(cls.B1) ** t), float(f32(1) - b2t), r
 
-    @torch.no_grad()
-    def step(self):
+    @classmethod
+    def step_scalars(cls, count: int, lr: float, weight_decay: float, eps: float) -> tuple:
+        """A group's scalars for step count t: (-lr, weight_decay * lr,
+        1 - b1^t, then 1 - b2^t, r_t, eps past the threshold and inf, 1, 1
+        below it)."""
+        bc1, bc2, r = cls.scalars(count)
+        rect = (math.inf, 1.0, 1.0) if r is None else (bc2, r, eps)
+        return (-lr, weight_decay * lr, bc1, *rect)
+
+    def advance(self):
+        """Count a step taken on device scalars in every group."""
         for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p]["step"] += 1
+
+    @torch.no_grad()
+    def step(self, scalars=None):
+        """Step every group with a gradient. ``scalars``: None (each
+        group's ``step_scalars`` from its count and rate on the host,
+        counted here), or one float32 device tensor of them a group
+        (``StepScalars``), which the caller counts (``advance``)."""
+        for i, group in enumerate(self.param_groups):
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
@@ -164,7 +199,11 @@ class RAdam(torch.optim.Optimizer):
                                          exp_avg_sq=torch.zeros_like(p))
             states = [self.state[p] for p in params]
             count = states[0]["step"] + 1
-            bc1, bc2, r = self.scalars(count)
+            if scalars is None:
+                s = self.step_scalars(count, group["lr"], group["weight_decay"], group["eps"])
+            else:
+                s = scalars[i].unbind()
+            neg_lr, wd_lr, bc1, bc2, r, floor = s
             grads = [p.grad for p in params]
             mu = [st["exp_avg"] for st in states]
             nu = [st["exp_avg_sq"] for st in states]
@@ -173,17 +212,18 @@ class RAdam(torch.optim.Optimizer):
             torch._foreach_mul_(nu, b2)
             torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
             upd = torch._foreach_div(mu, bc1)  # mu_hat
-            if r is not None:
-                den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
-                torch._foreach_add_(den, group["eps"])
-                upd = torch._foreach_div(torch._foreach_mul(upd, r), den)
-            lr = group["lr"]
-            torch._foreach_mul_(upd, -lr)
+            den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+            # a device scalar added a tensor at a time: _foreach_add_ of one
+            # does not capture
+            torch._foreach_add_(den, floor if scalars is None else [floor] * len(den))
+            upd = torch._foreach_div(torch._foreach_mul(upd, r), den)
+            torch._foreach_mul_(upd, neg_lr)
             if group["weight_decay"]:
-                torch._foreach_sub_(upd, torch._foreach_mul(params, group["weight_decay"] * lr))
+                torch._foreach_sub_(upd, torch._foreach_mul(params, wd_lr))
             torch._foreach_add_(params, upd)
-            for st in states:
-                st["step"] = count
+            if scalars is None:
+                for st in states:
+                    st["step"] = count
 
 
 class GroupOptimizer:
@@ -214,6 +254,60 @@ class GroupOptimizer:
             raise ValueError(f"optimizer state of {sorted(state)}; this run steps {sorted(self.parts)}")
         for name, opt in self.parts.items():
             opt.load_state_dict(state[name])
+
+
+def _parts(optimizer) -> list[torch.optim.Optimizer]:
+    return list(optimizer.parts.values()) if isinstance(optimizer, GroupOptimizer) else [optimizer]
+
+
+def step_count(opt: torch.optim.Optimizer, group: dict) -> int:
+    """The steps ``group`` of ``opt`` (Adam or RAdam) has taken."""
+    st = opt.state.get(group["params"][0])
+    return int(st["step"]) if st else 0
+
+
+ADAM_SCALARS = 3  # adam_scalars' length
+
+
+def adam_scalars(count: int, lr: float, weight_decay: float, betas) -> tuple:
+    """An Adam group's scalars for step count t, as ``torch.optim.Adam``'s
+    foreach step computes them on the host: (1 - lr * weight_decay,
+    sqrt(1 - b2^t), -lr / (1 - b1^t))."""
+    b1, b2 = betas
+    t = float(count)
+    return (1 - lr * weight_decay, (1 - b2 ** t) ** 0.5, (lr / (1 - b1 ** t)) * -1)
+
+
+@torch.no_grad()
+def adam_step(opt: torch.optim.Adam, scalars: list) -> None:
+    """``opt.step()`` as torch's foreach Adam makes it (decoupled decay, no
+    amsgrad), with each group's ``adam_scalars`` read from a float32 device
+    tensor (``StepScalars``): the same operations in the same order, so a
+    step can be captured. The step counts are left to ``count_step``."""
+    for group, s in zip(opt.param_groups, scalars):
+        params = [p for p in group["params"] if p.grad is not None]
+        if not params:
+            continue
+        for p in params:
+            if not opt.state[p]:
+                opt.state[p].update(step=torch.tensor(0.0),
+                                    exp_avg=torch.zeros_like(p, memory_format=torch.preserve_format),
+                                    exp_avg_sq=torch.zeros_like(p, memory_format=torch.preserve_format))
+        b1, b2 = group["betas"]
+        decay, bc2_sqrt, neg_step = s.unbind()
+        grads = [p.grad for p in params]
+        mu = [opt.state[p]["exp_avg"] for p in params]
+        nu = [opt.state[p]["exp_avg_sq"] for p in params]
+        if group["weight_decay"]:
+            torch._foreach_mul_(params, decay)
+        torch._foreach_lerp_(mu, grads, 1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, grads, grads, 1 - b2)
+        den = torch._foreach_sqrt(nu)
+        torch._foreach_div_(den, bc2_sqrt)
+        torch._foreach_add_(den, group["eps"])
+        # p + step * (mu / den), addcdiv's arithmetic with a device step size
+        torch._foreach_addcmul_(params, [neg_step] * len(params), torch._foreach_div(mu, den))
 
 
 def group_algorithms(optimizer) -> dict[str, str]:
@@ -254,6 +348,54 @@ class TrainState:
     params: dict  # {"model": {"field": ..., "proposal_networks": [...]}, "camera_opt": [N,6]}
     optimizer: torch.optim.Adam | GroupOptimizer
     step: int = 0
+    # on the card: the step's device scalars and its captured graphs (train_step)
+    scalars: StepScalars | None = dataclasses.field(default=None, repr=False, compare=False)
+    graphs: StepGraphs | None = dataclasses.field(default=None, repr=False, compare=False)
+
+
+class StepScalars:
+    """A train step's scalars on the card, in one float32 device buffer: the
+    proposal anneal, each Adam group's ``adam_scalars`` and each RAdam
+    group's ``RAdam.step_scalars``, computed on the host as the host's step
+    computes them. ``stage`` copies them in before a step from pinned memory,
+    which torch's host allocator does not hand out again until the copy has
+    run, so the host may run many steps ahead of the card. A step reads them
+    on the card, so a captured step serves every step of its proposal gate.
+    Once the anneal is 1 the step takes the host's 1 (``annealing``), whose
+    power is a copy."""
+
+    def __init__(self, optimizer, device):
+        self.optimizer = optimizer
+        sizes = [RAdam.NUM_SCALARS if isinstance(opt, RAdam) else ADAM_SCALARS
+                 for opt in _parts(optimizer) for _ in opt.param_groups]
+        self.buffer = torch.zeros(1 + sum(sizes), dtype=torch.float32, device=device)
+        self.anneal = self.buffer[0]
+        self.annealing = True
+        views = list(torch.split(self.buffer[1:], sizes))
+        # one view a group, in each part's order
+        self.radam, self.adam = [], []
+        for opt in _parts(optimizer):
+            mine = [views.pop(0) for _ in opt.param_groups]
+            (self.radam if isinstance(opt, RAdam) else self.adam).extend(mine)
+
+    def values(self, step: int, config: TrainConfig) -> np.ndarray:
+        """The scalars of a step at ``state.step == step``."""
+        out = [proposal_anneal(step, config.model)]
+        opts = _group_configs(config)
+        for opt in _parts(self.optimizer):
+            for group in opt.param_groups:
+                lr = learning_rate(opts[group["name"]], step, config.max_iters)
+                count = step_count(opt, group) + 1
+                if isinstance(opt, RAdam):
+                    out += RAdam.step_scalars(count, lr, group["weight_decay"], group["eps"])
+                else:
+                    out += adam_scalars(count, lr, group["weight_decay"], group["betas"])
+        return np.asarray(out, dtype=np.float32)
+
+    def stage(self, step: int, config: TrainConfig):
+        values = self.values(step, config)
+        self.annealing = bool(values[0] != 1.0)
+        self.buffer.copy_(torch.from_numpy(values).pin_memory(), non_blocking=True)
 
 
 def init_train_state(
@@ -329,8 +471,11 @@ def _sparsity_loss(params: dict, data: DeviceDataset, config: TrainConfig, pts) 
     return mc.density_sparsity_mult * torch.mean(occ)
 
 
-def compute_loss(state: TrainState, data: DeviceDataset, config: TrainConfig, draws: StepDraws):
-    """-> (total loss, {loss name: tensor}, metrics) for one step's draws."""
+def compute_loss(state: TrainState, data: DeviceDataset, config: TrainConfig, draws: StepDraws,
+                 anneal=None):
+    """-> (total loss, {loss name: tensor}, metrics) for one step's draws;
+    ``anneal``: the proposal anneal as a device scalar (``StepScalars``),
+    else the host's for ``state.step``."""
     params = state.params
     mc = config.model
     with span("rays"):
@@ -346,7 +491,8 @@ def compute_loss(state: TrainState, data: DeviceDataset, config: TrainConfig, dr
         bundle = near_far_collider(
             generate_rays(data.cameras, cam, ray_y, ray_x, pose_adjustment=adj),
             mc.near_plane, mc.far_plane)
-    outputs = forward_collided(params["model"], bundle, mc, draws.sampler, state.step, train=True)
+    outputs = forward_collided(params["model"], bundle, mc, draws.sampler, state.step, train=True,
+                               anneal=anneal)
     sparsity = None
     if mc.density_sparsity_mult > 0:
         with span("sparsity"):
@@ -359,17 +505,43 @@ def compute_loss(state: TrainState, data: DeviceDataset, config: TrainConfig, dr
         return total, losses, metrics_dict(outputs, rgb_gt)
 
 
-def optimizer_step(state: TrainState, config: TrainConfig) -> None:
+def optimizer_step(state: TrainState, config: TrainConfig, scalars: StepScalars | None = None,
+                   count: bool = True) -> None:
     """Step ``state.optimizer`` on the gradients in the parameters' ``.grad``
-    at the schedules' rates for ``state.step``, then count the step."""
+    at the schedules' rates for ``state.step``, then count the step. With
+    ``scalars`` the rates and the optimizers' step scalars are read on the
+    card, staged by the caller; ``count=False`` leaves the counting to the
+    caller (a captured step is counted at each replay: ``count_step``)."""
     opts = _group_configs(config)
     for group in state.optimizer.param_groups:
-        group["lr"] = learning_rate(opts[group["name"]], state.step, config.max_iters)
+        if scalars is None:
+            group["lr"] = learning_rate(opts[group["name"]], state.step, config.max_iters)
         for p in group["params"]:
             if p.grad is None:  # gated proposal nets: the optimizer still steps on zeros
                 p.grad = torch.zeros_like(p)
-    state.optimizer.step()
+    if scalars is None:
+        state.optimizer.step()
+        state.step += 1
+        return
+    for opt in _parts(state.optimizer):
+        if isinstance(opt, RAdam):
+            opt.step(scalars.radam)
+        else:
+            adam_step(opt, scalars.adam)
+    if count:
+        count_step(state)
+
+
+def count_step(state: TrainState) -> None:
+    """Count a step that read device scalars: the state's step and the
+    optimizers' step counts."""
     state.step += 1
+    for opt in _parts(state.optimizer):
+        if isinstance(opt, RAdam):
+            opt.advance()
+        else:
+            for st in opt.state.values():
+                st["step"] += 1
 
 
 def step_metrics(metrics: dict, losses: dict, total: torch.Tensor) -> dict:
@@ -413,7 +585,51 @@ def train_step(
     With ``mesh`` (``parallel/mesh.py:DataMesh``) the draws are the global
     step's, every rank's alike; this rank keeps its shard of them, and the
     gradients and metrics are averaged over the ranks (the twin is
-    ``make_train_step(config, mesh)``)."""
+    ``make_train_step(config, mesh)``).
+
+    On the card the step reads its scalars from the device (``StepScalars``,
+    staged here), and a step that draws from ``generator``, without
+    ``mesh``, once the optimizer has state, replays the step captured for
+    its proposal gate (``step_graph.StepGraphs``), the same work on the same
+    tensors; a state's first such step runs eagerly. The graphs are
+    captured again when the parameters, the optimizer's state, the data,
+    the generator or the config are other objects."""
+    device = state.optimizer.param_groups[0]["params"][0].device
+    if device.type != "cuda":
+        return _step(state, data, config, generator, draws, mesh)
+    if state.scalars is None or state.scalars.optimizer is not state.optimizer:
+        state.scalars = StepScalars(state.optimizer, device)
+    scalars = state.scalars
+    scalars.stage(state.step, config)
+    if state.graphs is None:  # a state's first step runs eagerly: torch's lazy set-up is done
+        state.graphs = StepGraphs()
+        key = None
+    else:
+        key = graph_key(state, config, draws, mesh)
+    if key is None:
+        return _step(state, data, config, generator, draws, mesh, scalars)
+    metrics = state.graphs.run(
+        key, graph_reads(state, data, config, generator), generator,
+        lambda: _step(state, data, config, generator, None, None, scalars, count=False))
+    count_step(state)
+    return metrics
+
+
+def graph_key(state: TrainState, config: TrainConfig, draws=None, mesh=None):
+    """On the card, which captured step replays this step: (its proposal
+    gate, whether the anneal still runs); None where the step runs eagerly:
+    given draws, a mesh, or an optimizer without state (a captured step must
+    not create it, or it would live in the graph's memory)."""
+    if draws is not None or mesh is not None or not all(
+            len(opt.state) == sum(len(g["params"]) for g in opt.param_groups)
+            for opt in _parts(state.optimizer)):
+        return None
+    mc = config.model
+    return proposal_updated(state.step, mc), proposal_anneal(state.step, mc) != 1.0
+
+
+def _step(state, data, config, generator, draws, mesh, scalars=None, count=True) -> dict:
+    """``train_step``'s work, its scalars on the host or on the card."""
     if draws is None:
         with span("draws"):
             draws = draw_step(config, data, generator)
@@ -421,14 +637,22 @@ def train_step(
         from ..parallel.mesh import average_gradients, shard_draws
 
         draws = shard_draws(draws, mesh)
-    total, losses, metrics = compute_loss(state, data, config, draws)
+    # the host's calls keep their signatures: the benchmark's fault tests patch both
+    if scalars is None:
+        total, losses, metrics = compute_loss(state, data, config, draws)
+    else:
+        total, losses, metrics = compute_loss(
+            state, data, config, draws, anneal=scalars.anneal if scalars.annealing else None)
     with span("backward"):
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
     if mesh is not None:
         average_gradients(state.params, mesh)
     with span("optimizer"):
-        optimizer_step(state, config)
+        if scalars is None:
+            optimizer_step(state, config)
+        else:
+            optimizer_step(state, config, scalars, count)
     with span("metrics"):
         metrics = step_metrics(metrics, losses, total)
         if mesh is not None:
@@ -436,6 +660,18 @@ def train_step(
         if config.use_camera_opt:
             metrics.update(camera_opt_metrics(state.params["camera_opt"]))
         return metrics
+
+
+def graph_reads(state: TrainState, data: DeviceDataset, config: TrainConfig, generator) -> tuple:
+    """What a captured step reads and writes, by identity: the config, the
+    generator, the staged scalars, the data's tensors, the parameters and
+    the optimizer's state tensors."""
+    cams = data.cameras
+    return (config, generator, state.scalars.buffer, data.images, data.masks,
+            data.train_indices, *(getattr(cams, f.name) for f in dataclasses.fields(cams)),
+            *tree_leaves(state.params),
+            *(t for opt in _parts(state.optimizer) for st in opt.state.values()
+              for t in st.values() if isinstance(t, torch.Tensor)))
 
 
 # ---------------------------------------------------------------------------

@@ -159,10 +159,12 @@ def forward_collided(
     uniforms,
     step: int,
     train: bool,
+    anneal=None,
 ) -> dict:
     """``forward_train`` on a bundle whose near and far planes are set
     (``near_far_collider``), which the train step sets inside its ``rays``
-    span."""
+    span. ``anneal``: the proposal anneal of a train step, a device scalar
+    on the card (else ``proposal_anneal(step)``)."""
     updated = proposal_updated(step, config)
 
     def make_density_fn(i):
@@ -181,7 +183,7 @@ def forward_collided(
         config.num_nerf_samples,
         train=train,
         uniforms=uniforms,
-        anneal=proposal_anneal(step, config) if train else 1.0,
+        anneal=(proposal_anneal(step, config) if anneal is None else anneal) if train else 1.0,
         initial_spacing=config.proposal_initial_sampler,
     )
     with span("field"):

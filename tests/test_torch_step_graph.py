@@ -1,0 +1,519 @@
+"""The train step as CUDA graphs (``engine/step_graph.py``) and the device
+scalars it reads (``engine/trainer.py:StepScalars``).
+
+On the CPU: the staged scalars equal ``learning_rate``, ``RAdam.scalars``
+and ``proposal_anneal`` bitwise across the camera group's warm-up, RAdam's
+threshold and the anneal's end; RAdam's update on staged scalars equals its
+update on the host's floats, and both equal the update it had before one
+formula covered both sides of the threshold; the engagement rule; the
+graph cache captures once a key and again when an input is replaced; the
+eager step on the CPU is the step as it was, over 12 steps; the card's
+eager step on staged scalars equals the host's; the ``graph`` spans and
+their reader.
+
+On a card (marked ``gpu``, skipped without one): 12 steps from a resumed
+state, graphed against eager on the same draws, on the grid preset (Adam)
+and the huge parity preset (corner hash, RAdam from its first count), are
+bitwise equal in every loss, parameter, moment, step count, the
+generator's state and the next draws, with equal kernel launch counts; the
+staged Adam step is torch's Adam step bitwise; a checkpoint taken mid-run
+resumes to the same next 5 steps. This file
+imports no JAX, so it runs on the card:
+
+    python -m pytest --noconftest -q tests/test_torch_step_graph.py
+"""
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from fruitnerf_tpu_torch.bridge import tree_leaves
+from fruitnerf_tpu_torch.configs import OptimizerConfig, fruit_nerf_smoke, get_preset
+from fruitnerf_tpu_torch.data.builder import dataset_from_scene
+from fruitnerf_tpu_torch.data.synthetic import SyntheticSceneConfig, render_scene
+from fruitnerf_tpu_torch.engine import step_graph, trainer
+from fruitnerf_tpu_torch.engine.trainer import (
+    RAdam, StepScalars, draw_step, graph_key, graph_reads, init_train_state,
+    learning_rate, make_optimizer, train_step,
+)
+from fruitnerf_tpu_torch.models.fruit_model import proposal_anneal
+from fruitnerf_tpu_torch.ops import hash_grid as hg
+from fruitnerf_tpu_torch.utils import profiling
+from fruitnerf_tpu_torch.utils.profiling import Span
+from port_bench import harness
+from port_bench.metrics_context import Context
+from port_bench.trace import DeviceEvent, grid_part
+
+STEPS = 12
+# the smoke preset's anneal and proposal warm-up end at step 200; from 195
+# the proposals train every 5th step
+START = 195
+
+
+def _radam(cfg):
+    radam = OptimizerConfig(name="radam")
+    return dataclasses.replace(cfg, fields_opt=radam, proposal_opt=radam)
+
+
+@pytest.fixture(scope="module")
+def data():
+    scene = render_scene(SyntheticSceneConfig(num_fruits=3, fruit_radius=0.13, num_cameras=6,
+                                              image_size=24, num_leaves=4), device="cpu")
+    return dataset_from_scene(scene, "cpu")
+
+
+@pytest.fixture(scope="module")
+def config(data):
+    cfg = fruit_nerf_smoke(data.cameras.num_cameras)
+    model = dataclasses.replace(cfg.model, density_sparsity_mult=0.005, sparsity_num_points=64)
+    return dataclasses.replace(cfg, model=model, train_rays_per_batch=64)
+
+
+def _tiny_params(rng):
+    def a(*shape):
+        return torch.tensor(rng.standard_normal(shape).astype(np.float32), requires_grad=True)
+
+    return {"model": {"field": {"grid_table": a(40, 16), "mlp": {"w0": a(8, 5)},
+                                "appearance": a(4, 6)},
+                      "proposal_networks": [{"mlp": {"w0": a(6, 3)}}]},
+            "camera_opt": a(4, 6)}
+
+
+# ---------------------------------------------------------------------------
+# on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_staged_scalars_equal_the_host_values_bitwise():
+    """The huge preset's groups (RAdam on the fields and proposals, Adam on
+    the appearance, with its decay, and the camera, whose rate is 0 until
+    step 2500): each slot is the float32 of what the host's step computes
+    (``RAdam.scalars``; torch's foreach Adam's bias corrections and step
+    size), over steps that cross the camera's warm-up, the anneal's end
+    (step 1000) and RAdam's threshold (count 6)."""
+    cfg = get_preset("fruit_nerf_huge", 4, variant="parity")
+    opt = make_optimizer(_tiny_params(np.random.default_rng(0)), cfg)
+    scalars = StepScalars(opt, "cpu")
+    radam, adam = opt.parts["radam"], opt.parts["adam"]
+    opts = trainer._group_configs(cfg)
+    steps = [*range(0, 4), *range(995, 1005), *range(2495, 2505), 10_000]
+    for count, step in enumerate(steps):
+        for o in (radam, adam):
+            for group in o.param_groups:
+                o.state[group["params"][0]] = {"step": count if o is radam else torch.tensor(
+                    float(count))}
+        got = scalars.values(step, cfg)
+        want = [proposal_anneal(step, cfg.model)]
+        for group in radam.param_groups:
+            lr = learning_rate(opts[group["name"]], step, cfg.max_iters)
+            bc1, bc2, r = RAdam.scalars(count + 1)
+            want += [-lr, group["weight_decay"] * lr, bc1,
+                     *((np.inf, 1.0, 1.0) if r is None else (bc2, r, group["eps"]))]
+        for group in adam.param_groups:
+            lr = learning_rate(opts[group["name"]], step, cfg.max_iters)
+            t = float(count + 1)
+            want += [1 - lr * group["weight_decay"], (1 - 0.999 ** t) ** 0.5,
+                     (lr / (1 - 0.9 ** t)) * -1]
+        assert got.dtype == np.float32 and np.array_equal(got, np.float32(want)), (step, count)
+    assert np.float32(learning_rate(cfg.camera_opt, 2499, cfg.max_iters)) == 0.0
+    assert cfg.appearance_opt.weight_decay > 0 and adam.param_groups[0]["betas"] == (0.9, 0.999)
+    assert RAdam.scalars(5)[2] is None and RAdam.scalars(6)[2] is not None
+
+
+class _SeedRAdam(RAdam):
+    """``RAdam.step`` as it was before one formula covered both sides of the
+    threshold (frozen)."""
+
+    @torch.no_grad()
+    def step(self, scalars=None):
+        assert scalars is None
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = self.B1, self.B2
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(step=0, exp_avg=torch.zeros_like(p),
+                                         exp_avg_sq=torch.zeros_like(p))
+            states = [self.state[p] for p in params]
+            count = states[0]["step"] + 1
+            bc1, bc2, r = self.scalars(count)
+            grads = [p.grad for p in params]
+            mu = [st["exp_avg"] for st in states]
+            nu = [st["exp_avg_sq"] for st in states]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
+            upd = torch._foreach_div(mu, bc1)
+            if r is not None:
+                den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+                torch._foreach_add_(den, group["eps"])
+                upd = torch._foreach_div(torch._foreach_mul(upd, r), den)
+            lr = group["lr"]
+            torch._foreach_mul_(upd, -lr)
+            if group["weight_decay"]:
+                torch._foreach_sub_(upd, torch._foreach_mul(params, group["weight_decay"] * lr))
+            torch._foreach_add_(params, upd)
+            for st in states:
+                st["step"] = count
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-3], ids=["no_decay", "decay"])
+def test_radam_on_staged_scalars_equals_the_host_floats_and_the_seed(weight_decay):
+    """Counts 1-10 from the same gradients: the update on staged float32
+    scalars, on the host's floats, and the frozen update are bitwise
+    equal; below the threshold the denominator is exactly 1."""
+    rng = np.random.default_rng(1)
+    init = [rng.standard_normal(s).astype(np.float32) for s in ((30, 4), (7,))]
+    runs = []
+    for kind in ("staged", "host", "seed"):
+        ps = [torch.tensor(a) for a in init]
+        cls = _SeedRAdam if kind == "seed" else RAdam
+        opt = cls([{"params": ps, "lr": 1e-2, "eps": 1e-8, "weight_decay": weight_decay}])
+        for count in range(1, 11):
+            g = np.random.default_rng(100 + count)
+            for p in ps:
+                p.grad = torch.tensor(g.standard_normal(tuple(p.shape)).astype(np.float32))
+            if kind == "staged":
+                s = RAdam.step_scalars(count, 1e-2, weight_decay, 1e-8)
+                opt.step([torch.tensor(np.float32(s))])
+                opt.advance()
+            else:
+                opt.step()
+        runs.append([p.clone() for p in ps] + [opt.state[p][k] for p in ps
+                                               for k in ("exp_avg", "exp_avg_sq")])
+        assert all(opt.state[p]["step"] == 10 for p in ps)
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+def test_the_engagement_rule(config, data):
+    """Given draws, a mesh or an optimizer without state: eager (no key).
+    With state, the key is the proposal gate and whether the anneal runs:
+    four keys over steps that cross both. RAdam below its threshold replays
+    too (its rectifier is a staged scalar). On the CPU the step stages
+    nothing and captures nothing."""
+    cfg = _radam(config)
+    state = init_train_state(cfg, data.cameras.num_cameras, "cpu",
+                             generator=torch.Generator().manual_seed(0))
+    state.step = START
+    gen = torch.Generator().manual_seed(1)
+    assert graph_key(state, cfg) is None  # no optimizer state yet
+    train_step(state, data, cfg, gen)
+    assert state.scalars is None and state.graphs is None
+    assert graph_key(state, cfg, draws=draw_step(cfg, data, gen)) is None
+    assert graph_key(state, cfg, mesh=object()) is None
+    radam = state.optimizer.parts["radam"]
+    assert trainer.step_count(radam, radam.param_groups[0]) == 1
+    keys = {graph_key(dataclasses.replace(state, step=s), cfg) for s in range(START, START + 7)}
+    # (the proposals train, the anneal runs): from 195 every 5th step trains, the anneal ends at 200
+    assert keys == {(True, True), (False, True), (True, False), (False, False)}
+
+
+class _FakeCapture:
+    """A ``CapturedStep`` without a card: runs the step at capture and each
+    replay, and counts captures."""
+
+    made = 0
+
+    def __init__(self, step, generator, pool=None):
+        type(self).made += 1
+        self.step = step
+        self.graph = SimpleNamespace(pool=lambda: "pool")
+
+    def replay(self):
+        return self.step()
+
+
+def test_the_cache_captures_a_gate_once_and_again_after_a_replacement(config, data, monkeypatch):
+    """Two gate values, two captures; replaying them captures nothing;
+    replacing a parameter, the optimizer's state or the data drops every
+    graph and captures again."""
+    monkeypatch.setattr(step_graph, "CapturedStep", _FakeCapture)
+    _FakeCapture.made = 0
+    state = init_train_state(config, data.cameras.num_cameras, "cpu",
+                             generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    train_step(state, data, config, gen)
+    state.scalars = StepScalars(state.optimizer, "cpu")
+    graphs = step_graph.StepGraphs()
+
+    def run(key, d=data):
+        return graphs.run(key, graph_reads(state, d, config, gen), gen, lambda: {"k": key})
+
+    for key in (True, False, True, False):
+        assert run(key) == {"k": key}
+    assert _FakeCapture.made == 2 and set(graphs.graphs) == {True, False}
+    leaf = state.params["camera_opt"]
+    state.params["camera_opt"] = leaf.detach().clone().requires_grad_(True)
+    run(True)
+    assert _FakeCapture.made == 3 and set(graphs.graphs) == {True}
+    state.optimizer.load_state_dict(state.optimizer.state_dict())  # the same tensors
+    run(True)
+    assert _FakeCapture.made == 3
+    sd = state.optimizer.state_dict()
+    sd = {**sd, "state": {k: {n: t.clone() for n, t in v.items()} for k, v in sd["state"].items()}}
+    state.optimizer.load_state_dict(sd)
+    run(True)
+    assert _FakeCapture.made == 4
+    run(True, dataclasses.replace(data, images=data.images.clone()))
+    assert _FakeCapture.made == 5
+
+
+def _seed_step(state, data, config, generator):
+    """The eager train step as it was before its scalars could live on the
+    device (frozen; ``compute_loss`` without ``anneal`` takes the host's)."""
+    draws = draw_step(config, data, generator)
+    total, losses, metrics = trainer.compute_loss(state, data, config, draws)
+    state.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    opts = trainer._group_configs(config)
+    for group in state.optimizer.param_groups:
+        group["lr"] = learning_rate(opts[group["name"]], state.step, config.max_iters)
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    state.optimizer.step()
+    state.step += 1
+    return total.detach()
+
+
+@pytest.fixture
+def one_thread():
+    """A CPU run repeats bitwise on one thread only."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("algo", ["adam", "radam"])
+def test_the_eager_step_on_the_cpu_is_the_seed_step(config, data, algo, one_thread):
+    """Twelve steps from step 195 (the anneal's end and both gate values;
+    with RAdam its threshold too), ``train_step`` against the frozen step on
+    the same draws: every loss and parameter bitwise equal."""
+    cfg = _radam(config) if algo == "radam" else config
+    runs = []
+    for frozen in (False, True):
+        gen = torch.Generator().manual_seed(3)
+        state = init_train_state(cfg, data.cameras.num_cameras, "cpu",
+                                 generator=torch.Generator().manual_seed(0))
+        state.step = START
+        if frozen and algo == "radam":
+            state.optimizer.parts["radam"].__class__ = _SeedRAdam
+        losses = [(_seed_step(state, data, cfg, gen) if frozen
+                   else train_step(state, data, cfg, gen)["total_loss"]) for _ in range(STEPS)]
+        runs.append((torch.stack(losses), [t.detach().clone() for t in tree_leaves(state.params)]))
+    (la, pa), (lb, pb) = runs
+    assert torch.equal(la, lb)
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+
+
+def test_the_step_on_staged_scalars_equals_the_step_on_host_floats(config, data, one_thread):
+    """The card's eager step (RAdam's scalars and the anneal read from a
+    buffer, ``trainer._step`` with ``StepScalars``), run on the CPU, against
+    ``train_step`` there, 12 steps from 195 with RAdam on every group (the
+    card's Adam is capturable, which the CPU's is not: the card tests hold
+    it): bitwise equal, and the step counts agree."""
+    cfg = _radam(config)
+    cfg = dataclasses.replace(
+        cfg, appearance_opt=dataclasses.replace(cfg.appearance_opt, name="radam"),
+        camera_opt=dataclasses.replace(cfg.camera_opt, name="radam", warmup_steps=0))
+    assert set(trainer.group_algorithms(make_optimizer(
+        init_train_state(cfg, data.cameras.num_cameras, "cpu").params, cfg)).values()) == {"radam"}
+    runs = []
+    for staged in (False, True):
+        gen = torch.Generator().manual_seed(3)
+        state = init_train_state(cfg, data.cameras.num_cameras, "cpu",
+                                 generator=torch.Generator().manual_seed(0))
+        state.step = START
+        scalars = StepScalars(state.optimizer, "cpu")
+        losses = []
+        for _ in range(STEPS):
+            if staged:
+                scalars.buffer.copy_(torch.from_numpy(scalars.values(state.step, cfg)))
+                m = trainer._step(state, data, cfg, gen, None, None, scalars)
+            else:
+                m = train_step(state, data, cfg, gen)
+            losses.append(m["total_loss"])
+        counts = [trainer.step_count(opt, g) for opt in trainer._parts(state.optimizer)
+                  for g in opt.param_groups]
+        runs.append((torch.stack(losses), [t.detach().clone() for t in tree_leaves(state.params)],
+                     state.step, counts))
+    (la, pa, sa, ca), (lb, pb, sb, cb) = runs
+    assert torch.equal(la, lb) and (sa, ca) == (sb, cb) == (START + STEPS, ca)
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+
+
+def _span(name, a, b):
+    return Span(name, None, 7, a * 1_000_000, b * 1_000_000, 0)
+
+
+@pytest.mark.parametrize("names, want", [((), None), (("graph", "graph", "log"), 1.0),
+                                         (("draws", "backward", "optimizer"), 0.0)],
+                         ids=["no_spans", "replays", "eager"])
+def test_the_replay_reader(monkeypatch, names, want):
+    """``step.graph_replays_per_step``: ``graph`` spans over the steps; None
+    where nothing was recorded."""
+    read = harness.load_reader("step.graph_replays_per_step")
+    spans = [_span(n, i, i + 1) for i, n in enumerate(names)]
+    monkeypatch.setattr(profiling, "spans", lambda: spans)
+    ctx = Context(trace=SimpleNamespace(window_s=0.1), work={}, steps=2,
+                  host_cpu_s_per_step=0.02, wall_s_per_step=0.025)
+    assert read(ctx) == want
+
+
+@pytest.mark.parametrize("name", ["graph", "graph.capture"])
+def test_the_graph_spans_are_read_by_no_older_rule(name):
+    """Kernels whose outermost op is a graph span read as no grid, optimizer
+    or MLP work by their op chain, and no host reader takes the span."""
+    mine = harness._load(harness.HERE, "metrics", "optimizer.device_ms")._mine
+    matmuls = harness._load(harness.HERE, "metrics", "model.mlp_device_ms").MATMULS
+    for ops in ((name,), ("cudaGraphLaunch", name)):
+        e = DeviceEvent("void elementwise_kernel", 0.0, 1.0, ops)
+        assert grid_part(e) is None and not mine(e) and e.ops[0] not in matmuls
+    forward = harness._load(harness.HERE, "metrics", "model.forward_host_ms")
+    assert name not in forward.STAGES and not name.startswith(forward.PREFIXES)
+    assert name not in harness._load(harness.HERE, "metrics", "step.backward_host_ms").STAGES
+
+
+# ---------------------------------------------------------------------------
+# on a card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (CUDA graphs have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    scene = render_scene(SyntheticSceneConfig(image_size=64, num_cameras=8), device=dev)
+    return dev, dataset_from_scene(scene, dev)
+
+
+def _card_config(name, n):
+    if name == "grid":
+        from fruitnerf_tpu_torch.configs import apply_overrides
+
+        return apply_overrides(get_preset("fruit_nerf", n), {"sparsity_loss": 0.005})
+    return get_preset("fruit_nerf_huge", n, variant="parity")
+
+
+def _moments(optimizer) -> list[torch.Tensor]:
+    return [t for opt in trainer._parts(optimizer) for st in opt.state.values()
+            for t in st.values() if isinstance(t, torch.Tensor)]
+
+
+def _card_run(cfg, data, start, graphed, steps=STEPS):
+    dev, n = data.images.device, data.cameras.num_cameras
+    state = init_train_state(cfg, n, dev, generator=torch.Generator(device=dev).manual_seed(0))
+    state.step = start
+    gen = torch.Generator(device=dev).manual_seed(1)
+    hg.reset_launch_counts()
+    losses, gens = [], []
+    for _ in range(steps):
+        if graphed:
+            m = train_step(state, data, cfg, gen)
+        else:
+            m = train_step(state, data, cfg, draws=draw_step(cfg, data, gen))
+        losses.append(m["total_loss"])
+        gens.append(gen.get_state())
+    torch.cuda.synchronize(dev)
+    return {"losses": torch.stack(losses).cpu(), "gens": gens,
+            "params": [t.detach().clone() for t in tree_leaves(state.params)],
+            "moments": [t.clone() for t in _moments(state.optimizer)],
+            "counts": [trainer.step_count(opt, g) for opt in trainer._parts(state.optimizer)
+                       for g in opt.param_groups],
+            "launches": (dict(hg.LAUNCHES), dict(hg.SCENES)),
+            "next": draw_step(cfg, data, gen),
+            "keys": sorted(state.graphs.graphs) if state.graphs else []}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, start", [("grid", 10_000), ("huge", 10_000), ("grid", 20)],
+                         ids=["grid", "huge_parity", "grid_annealing"])
+def test_graphed_steps_equal_eager_steps(card, name, start):
+    """Twelve steps from ``start`` with a fresh optimizer (its first step
+    eager, then replays; RAdam from count 1, across its threshold), against
+    the same steps eager on the same draws: bitwise equal."""
+    dev, data = card
+    cfg = _card_config(name, data.cameras.num_cameras)
+    g = _card_run(cfg, data, start, graphed=True)
+    e = _card_run(cfg, data, start, graphed=False)
+    assert g["keys"] == ([(False, False), (True, False)] if start == 10_000 else [(True, True)])
+    assert e["keys"] == []
+    assert torch.equal(g["losses"], e["losses"])
+    assert all(torch.equal(a, b) for a, b in zip(g["params"], e["params"]))
+    assert len(g["moments"]) == len(e["moments"])
+    assert all(torch.equal(a, b) for a, b in zip(g["moments"], e["moments"]))
+    assert g["counts"] == e["counts"]
+    assert all(torch.equal(a, b) for a, b in zip(g["gens"], e["gens"]))
+    assert all(torch.equal(a, b) for a, b in zip(
+        [*g["next"].sampler, g["next"].slot, g["next"].jitter, g["next"].sparse_points],
+        [*e["next"].sampler, e["next"].slot, e["next"].jitter, e["next"].sparse_points]))
+    assert g["launches"] == e["launches"] and sum(g["launches"][0].values()) > 0
+
+
+@pytest.mark.gpu
+def test_the_staged_adam_step_is_torchs(card):
+    """Five steps of ``adam_step`` on staged scalars against
+    ``torch.optim.Adam.step`` (foreach on the card) from the same
+    gradients, one group with decoupled decay: parameters and moments
+    bitwise equal."""
+    dev, _ = card
+    rng = np.random.default_rng(2)
+    init = [rng.standard_normal(s).astype(np.float32) for s in ((300, 7), (33,), (5, 5))]
+    runs = []
+    for staged in (False, True):
+        ps = [torch.tensor(a, device=dev) for a in init]
+        opt = torch.optim.Adam([
+            {"params": ps[:2], "lr": 3e-3, "eps": 1e-15, "weight_decay": 0.0},
+            {"params": ps[2:], "lr": 2e-2, "eps": 1e-8, "weight_decay": 1e-3,
+             "decoupled_weight_decay": True}])
+        for count in range(1, 6):
+            g = np.random.default_rng(50 + count)
+            for p in ps:
+                p.grad = torch.tensor(g.standard_normal(tuple(p.shape)).astype(np.float32),
+                                      device=dev)
+            if staged:
+                s = [torch.tensor(np.float32(trainer.adam_scalars(
+                    count, grp["lr"], grp["weight_decay"], grp["betas"])), device=dev)
+                    for grp in opt.param_groups]
+                trainer.adam_step(opt, s)
+                for st in opt.state.values():
+                    st["step"] += 1
+            else:
+                opt.step()
+        runs.append([p.clone() for p in ps] + _moments(opt))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_a_checkpoint_mid_run_resumes_to_the_same_steps(card, tmp_path):
+    """Six graphed steps, a checkpoint, five more; a state restored from the
+    checkpoint (other initial weights before it) takes the same five."""
+    from fruitnerf_tpu_torch.engine.checkpoints import load_checkpoint, save_checkpoint
+
+    dev, data = card
+    cfg = _card_config("grid", data.cameras.num_cameras)
+    n = data.cameras.num_cameras
+    state = init_train_state(cfg, n, dev, generator=torch.Generator(device=dev).manual_seed(0))
+    state.step = 10_000
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(6):
+        train_step(state, data, cfg, gen)
+    path = save_checkpoint(tmp_path, state, gen)
+    want = torch.stack([train_step(state, data, cfg, gen)["total_loss"] for _ in range(5)])
+    other = init_train_state(cfg, n, dev, generator=torch.Generator(device=dev).manual_seed(9))
+    gen2 = torch.Generator(device=dev).manual_seed(5)
+    load_checkpoint(path, other, gen2)
+    got = torch.stack([train_step(other, data, cfg, gen2)["total_loss"] for _ in range(5)])
+    assert other.graphs is not None and other.graphs.graphs
+    assert torch.equal(want, got)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(state.params),
+                                                 tree_leaves(other.params)))
+    assert torch.equal(gen.get_state(), gen2.get_state())
