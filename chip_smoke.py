@@ -882,9 +882,10 @@ def parity_phase(scene, dev, seed: int):
 
 @contextlib.contextmanager
 def eager_steps():
-    """Every train step in the block runs eagerly: a step replayed from its
-    CUDA graph runs no Python, so a spy on the kernels' calls sees only the
-    steps that make them."""
+    """Every train step in the block runs eagerly, a multi-scene one too
+    (``multi_scene.graph_key`` defers to ``trainer.graph_key``): a step
+    replayed from its CUDA graph runs no Python, so a spy on the kernels'
+    calls sees only the steps that make them."""
     from fruitnerf_tpu_torch.engine import trainer
 
     real = trainer.graph_key

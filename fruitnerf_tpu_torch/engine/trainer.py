@@ -597,22 +597,27 @@ def train_step(
     device = state.optimizer.param_groups[0]["params"][0].device
     if device.type != "cuda":
         return _step(state, data, config, generator, draws, mesh)
-    if state.scalars is None or state.scalars.optimizer is not state.optimizer:
-        state.scalars = StepScalars(state.optimizer, device)
-    scalars = state.scalars
-    scalars.stage(state.step, config)
-    if state.graphs is None:  # a state's first step runs eagerly: torch's lazy set-up is done
-        state.graphs = StepGraphs()
-        key = None
-    else:
-        key = graph_key(state, config, draws, mesh)
+    key = graph_key(state, config, draws, mesh) if stage_step(state, config, device) else None
     if key is None:
-        return _step(state, data, config, generator, draws, mesh, scalars)
+        return _step(state, data, config, generator, draws, mesh, state.scalars)
     metrics = state.graphs.run(
-        key, graph_reads(state, data, config, generator), generator,
-        lambda: _step(state, data, config, generator, None, None, scalars, count=False))
+        key, graph_reads(state, data, config, [generator]), [generator],
+        lambda: _step(state, data, config, generator, None, None, state.scalars, count=False))
     count_step(state)
     return metrics
+
+
+def stage_step(state: TrainState, config: TrainConfig, device) -> bool:
+    """Stage a step's scalars on the card (``state.scalars``) -> whether the
+    step may replay a captured step: not a state's first step on the card,
+    which runs eagerly so that torch's lazy set-up is done."""
+    if state.scalars is None or state.scalars.optimizer is not state.optimizer:
+        state.scalars = StepScalars(state.optimizer, device)
+    state.scalars.stage(state.step, config)
+    if state.graphs is None:
+        state.graphs = StepGraphs()
+        return False
+    return True
 
 
 def graph_key(state: TrainState, config: TrainConfig, draws=None, mesh=None):
@@ -662,12 +667,12 @@ def _step(state, data, config, generator, draws, mesh, scalars=None, count=True)
         return metrics
 
 
-def graph_reads(state: TrainState, data: DeviceDataset, config: TrainConfig, generator) -> tuple:
-    """What a captured step reads and writes, by identity: the config, the
-    generator, the staged scalars, the data's tensors, the parameters and
-    the optimizer's state tensors."""
+def graph_reads(state: TrainState, data: DeviceDataset, config: TrainConfig, generators) -> tuple:
+    """What a captured step reads and writes, by identity: the config, each
+    generator, the staged scalars, the data's tensors (a multi-scene step's
+    stacked ones), the parameters and the optimizer's state tensors."""
     cams = data.cameras
-    return (config, generator, state.scalars.buffer, data.images, data.masks,
+    return (config, *generators, state.scalars.buffer, data.images, data.masks,
             data.train_indices, *(getattr(cams, f.name) for f in dataclasses.fields(cams)),
             *tree_leaves(state.params),
             *(t for opt in _parts(state.optimizer) for st in opt.state.values()

@@ -7,9 +7,10 @@ threshold and the anneal's end; RAdam's update on staged scalars equals its
 update on the host's floats, and both equal the update it had before one
 formula covered both sides of the threshold; the engagement rule; the
 graph cache captures once a key and again when an input is replaced; the
-eager step on the CPU is the step as it was, over 12 steps; the card's
-eager step on staged scalars equals the host's; the ``graph`` spans and
-their reader.
+same rule and cache for the multi-scene step, whose card path on staged
+scalars equals its CPU path; the eager step on the CPU is the step as it
+was, over 12 steps; the card's eager step on staged scalars equals the
+host's; the ``graph`` spans and their reader.
 
 On a card (marked ``gpu``, skipped without one): 12 steps from a resumed
 state, graphed against eager on the same draws, on the grid preset (Adam)
@@ -19,7 +20,9 @@ proposal fields, Adam) with its K3/K4 launches counted, are
 bitwise equal in every loss, parameter, moment, step count, the
 generator's state and the next draws, with equal kernel launch counts; the
 staged Adam step is torch's Adam step bitwise; a checkpoint taken mid-run
-resumes to the same next 5 steps. This file
+resumes to the same next 5 steps; 12 campaign-shaped steps of 4 scenes
+through ``multi_scene_step`` (from the campaign's start, and from an
+annealing one) are bitwise equal graphed and eager. This file
 imports no JAX, so it runs on the card:
 
     python -m pytest --noconftest -q tests/test_torch_step_graph.py
@@ -42,6 +45,7 @@ from fruitnerf_tpu_torch.engine.trainer import (
 )
 from fruitnerf_tpu_torch.models.fruit_model import proposal_anneal
 from fruitnerf_tpu_torch.ops import hash_grid as hg
+from fruitnerf_tpu_torch.parallel import multi_scene as ms
 from fruitnerf_tpu_torch.utils import profiling
 from fruitnerf_tpu_torch.utils.profiling import Span
 from port_bench import harness
@@ -222,9 +226,10 @@ class _FakeCapture:
 
     made = 0
 
-    def __init__(self, step, generator, pool=None):
+    def __init__(self, step, generators, pool=None):
         type(self).made += 1
         self.step = step
+        self.generators = list(generators)
         self.graph = SimpleNamespace(pool=lambda: "pool")
 
     def replay(self):
@@ -245,7 +250,7 @@ def test_the_cache_captures_a_gate_once_and_again_after_a_replacement(config, da
     graphs = step_graph.StepGraphs()
 
     def run(key, d=data):
-        return graphs.run(key, graph_reads(state, d, config, gen), gen, lambda: {"k": key})
+        return graphs.run(key, graph_reads(state, d, config, [gen]), [gen], lambda: {"k": key})
 
     for key in (True, False, True, False):
         assert run(key) == {"k": key}
@@ -264,6 +269,120 @@ def test_the_cache_captures_a_gate_once_and_again_after_a_replacement(config, da
     assert _FakeCapture.made == 4
     run(True, dataclasses.replace(data, images=data.images.clone()))
     assert _FakeCapture.made == 5
+
+
+def _multi(config, data, scenes=2):
+    """A multi-scene state of ``scenes`` copies of the scene, its stacked
+    data and its scene generators."""
+    datas = ms.stack_datasets([data] * scenes)
+    state, gens = ms.init_multi_scene_state(config, data.cameras.num_cameras, scenes, "cpu")
+    return state, datas, gens
+
+
+def test_the_multi_scene_engagement_rule(config, data):
+    """``train_step``'s rule (no optimizer state, given draws: eager; else
+    the proposal gate and whether the anneal runs, four keys over steps
+    that cross both), and scene groups on two or more devices eager, one
+    group not. On the CPU the step stages nothing and captures nothing."""
+    state, datas, gens = _multi(config, data)
+    state.step = START
+    assert ms.graph_key(state, datas, config) is None  # no optimizer state yet
+    ms.multi_scene_step(state, datas, config, gens)
+    assert state.scalars is None and state.graphs is None
+    draws = [draw_step(config, ms.scene_dataset(datas, s), g) for s, g in enumerate(gens)]
+    assert ms.graph_key(state, datas, config, draws=draws) is None
+    assert ms.graph_key(state, datas, config, devices=["cpu", "cpu"]) is None
+    ms.multi_scene_step(state, datas, config, gens, devices=["cpu", "cpu"])
+    assert state.scalars is None and state.graphs is None
+    for devices in (None, ["cpu"]):
+        keys = {ms.graph_key(dataclasses.replace(state, step=s), datas, config, devices=devices)
+                for s in range(START, START + 7)}
+        assert keys == {(True, True), (False, True), (True, False), (False, False)}
+
+
+def _replace(what, state, datas, gens):
+    """Put another object in place of one that a multi-scene step reads ->
+    the stacked data."""
+    if what == "generator":
+        gens[1] = torch.Generator().manual_seed(5)
+    elif what == "parameter":
+        state.params["camera_opt"] = state.params["camera_opt"].clone()
+    elif what == "moment":
+        opt = next(o for o in trainer._parts(state.optimizer) if o.state)
+        st = next(iter(opt.state.values()))
+        st["exp_avg"] = st["exp_avg"].clone()
+    elif what == "data":
+        datas = dataclasses.replace(datas, masks=datas.masks.clone())
+    else:
+        cams = datas.cameras
+        datas = dataclasses.replace(datas, cameras=dataclasses.replace(
+            cams, camera_to_worlds=cams.camera_to_worlds.clone()))
+    return datas
+
+
+@pytest.mark.parametrize("what", ["generator", "data", "cameras", "parameter", "moment"])
+def test_the_multi_scene_cache_captures_again_after_a_replacement(config, data, monkeypatch,
+                                                                  what):
+    """A multi-scene step's reads (``trainer.graph_reads`` over every scene
+    generator and the stacked data): two gate values, two captures, each
+    registering every scene's generator in order; replays capture nothing;
+    replacing one scene's generator, the stacked data, its cameras, a
+    parameter or a moment drops every graph and captures again."""
+    monkeypatch.setattr(step_graph, "CapturedStep", _FakeCapture)
+    _FakeCapture.made = 0
+    state, datas, gens = _multi(config, data)
+    ms.multi_scene_step(state, datas, config, gens)
+    state.scalars = StepScalars(state.optimizer, "cpu")
+    graphs = step_graph.StepGraphs()
+
+    def run(key, d):
+        return graphs.run(key, graph_reads(state, d, config, gens), gens, lambda: {"k": key})
+
+    for key in (True, False, True, False):
+        assert run(key, datas) == {"k": key}
+    assert _FakeCapture.made == 2 and set(graphs.graphs) == {True, False}
+    assert all(g.generators == gens and len(gens) == 2 for g in graphs.graphs.values())
+    datas = _replace(what, state, datas, gens)
+    run(True, datas)
+    assert _FakeCapture.made == 3 and set(graphs.graphs) == {True}
+    run(True, datas)
+    assert _FakeCapture.made == 3
+
+
+def test_the_multi_scene_step_on_staged_scalars_equals_the_step_on_host_floats(
+        config, data, one_thread):
+    """The card's eager multi-scene step (the rates and RAdam's scalars read
+    from a buffer, the anneal a device scalar closed over by the vmapped
+    loss, shared by the scenes), run on the CPU, against
+    ``multi_scene_step`` there: 12 steps of 2 scenes from 195 (the anneal's
+    end, both gate values, RAdam's threshold), RAdam on every group as in
+    the single-scene test: bitwise equal [S] losses, parameters and step
+    counts."""
+    cfg = _radam(config)
+    cfg = dataclasses.replace(
+        cfg, appearance_opt=dataclasses.replace(cfg.appearance_opt, name="radam"),
+        camera_opt=dataclasses.replace(cfg.camera_opt, name="radam", warmup_steps=0))
+    runs = []
+    for staged in (False, True):
+        state, datas, gens = _multi(cfg, data)
+        state.step = START
+        scalars = StepScalars(state.optimizer, "cpu")
+        losses = []
+        for _ in range(STEPS):
+            if staged:
+                scalars.buffer.copy_(torch.from_numpy(scalars.values(state.step, cfg)))
+                m = ms._step(state, datas, cfg, gens, None, None, scalars)
+            else:
+                m = ms.multi_scene_step(state, datas, cfg, gens)
+            losses.append(m["total_loss"])
+        counts = [trainer.step_count(opt, g) for opt in trainer._parts(state.optimizer)
+                  for g in opt.param_groups]
+        runs.append((torch.stack(losses), [t.detach().clone() for t in tree_leaves(state.params)],
+                     state.step, counts))
+    (la, pa, sa, ca), (lb, pb, sb, cb) = runs
+    assert la.shape == (STEPS, 2)
+    assert torch.equal(la, lb) and (sa, ca) == (sb, cb) == (START + STEPS, ca)
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
 
 
 def _seed_step(state, data, config, generator):
@@ -487,6 +606,79 @@ def test_graphed_steps_equal_eager_steps_on_the_base_parity_network(card):
     want = {"cell_encode_fwd": 0, "cell_encode_bwd": 0, "corner_encode_fwd": 4 * STEPS,
             "corner_encode_bwd": 2 * STEPS + 2 * gated}
     assert gated == 3 and g["launches"] == e["launches"] == (want, want)
+
+
+CAMPAIGN_SCENES = 4
+
+
+@pytest.fixture(scope="module")
+def card_scenes(card):
+    """Four small structurally identical scenes on the card, stacked as the
+    campaign stacks its orchards (every camera trained)."""
+    dev, _ = card
+    scenes = [render_scene(SyntheticSceneConfig(image_size=64, num_cameras=8, num_fruits=4 + s,
+                                                seed=101 * s), device=dev)
+              for s in range(CAMPAIGN_SCENES)]
+    return ms.stack_datasets([dataset_from_scene(sc, dev, train_fraction=1.0) for sc in scenes])
+
+
+def _scene_draws(cfg, datas, gens) -> list:
+    return [draw_step(cfg, ms.scene_dataset(datas, s), g) for s, g in enumerate(gens)]
+
+
+def _card_multi_run(cfg, datas, start, graphed, steps=STEPS):
+    dev = datas.images.device
+    n = datas.cameras.camera_to_worlds.shape[1]
+    state, gens = ms.init_multi_scene_state(cfg, n, datas.images.shape[0], dev)
+    state.step = start
+    hg.reset_launch_counts()
+    losses, states = [], []
+    for _ in range(steps):
+        if graphed:
+            m = ms.multi_scene_step(state, datas, cfg, gens)
+        else:
+            m = ms.multi_scene_step(state, datas, cfg, draws=_scene_draws(cfg, datas, gens))
+        losses.append(m["total_loss"])
+        states.extend(g.get_state() for g in gens)
+    torch.cuda.synchronize(dev)
+    nxt = _scene_draws(cfg, datas, gens)
+    return {"losses": torch.stack(losses).cpu(), "gens": states,
+            "params": [t.detach().clone() for t in tree_leaves(state.params)],
+            "moments": [t.clone() for t in _moments(state.optimizer)],
+            "counts": [trainer.step_count(opt, g) for opt in trainer._parts(state.optimizer)
+                       for g in opt.param_groups],
+            "launches": (dict(hg.LAUNCHES), dict(hg.SCENES)),
+            "next": [t for d in nxt for t in (*d.sampler, d.slot, d.py, d.px, d.jitter,
+                                              d.sparse_points)],
+            "keys": sorted(state.graphs.graphs) if state.graphs else []}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", [2000, 20], ids=["campaign", "campaign_annealing"])
+def test_graphed_multi_scene_steps_equal_eager_steps(card_scenes, start):
+    """Twelve campaign-shaped steps (4 scenes of 2048 rays on the grid
+    preset) from ``start``, from a fresh optimizer (its first step eager,
+    then replays), through ``multi_scene_step`` with the scene generators,
+    against the same steps eager on the same draws: the [S] losses, the
+    parameters, the moments, the step counts, every scene generator's state
+    after each step, the next draws and the grid launch counts bitwise
+    equal. From 2000 the proposals train every 2nd step (both gate keys);
+    from 20 the anneal runs (a device scalar that the vmapped loss closes
+    over)."""
+    datas = card_scenes
+    cfg = dataclasses.replace(_card_config("grid", datas.cameras.camera_to_worlds.shape[1]),
+                              train_rays_per_batch=2048)
+    g = _card_multi_run(cfg, datas, start, graphed=True)
+    e = _card_multi_run(cfg, datas, start, graphed=False)
+    assert g["keys"] == ([(False, False), (True, False)] if start == 2000 else [(True, True)])
+    assert e["keys"] == []
+    assert g["losses"].shape == (STEPS, CAMPAIGN_SCENES) and torch.equal(g["losses"], e["losses"])
+    assert g["counts"] == e["counts"]
+    for k in ("params", "moments", "gens", "next"):
+        assert len(g[k]) == len(e[k]) and all(torch.equal(a, b) for a, b in zip(g[k], e[k])), k
+    assert g["launches"] == e["launches"] and sum(g["launches"][0].values()) > 0
+    # one launch a call for every scene
+    assert all(g["launches"][1][k] == CAMPAIGN_SCENES * n for k, n in g["launches"][0].items())
 
 
 @pytest.mark.gpu
