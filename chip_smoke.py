@@ -845,7 +845,8 @@ def parity_phase(scene, dev, seed: int):
     the plain version at fixed positions instead."""
     from fruitnerf_tpu_torch.bridge import tree_map
     from fruitnerf_tpu_torch.data.builder import dataset_from_scene
-    from fruitnerf_tpu_torch.engine.trainer import compute_loss, draw_step, init_train_state
+    from fruitnerf_tpu_torch.engine.trainer import (
+        compute_loss, draw_step, init_train_state, stage_scalars)
 
     n = scene["images"].shape[0]
     cfg = small_config(n)
@@ -865,6 +866,7 @@ def parity_phase(scene, dev, seed: int):
                 draws, **{f.name: tree_map(getattr(draws, f.name), lambda t: t.to(device))
                           for f in dataclasses.fields(draws)},
             )
+        stage_scalars(state, cfg)
         total, losses, _ = compute_loss(state, data, cfg, draws)
         total.backward()
         terms = {"total": total.item(), **{k: v.item() for k, v in losses.items()}}
@@ -883,17 +885,17 @@ def parity_phase(scene, dev, seed: int):
 @contextlib.contextmanager
 def eager_steps():
     """Every train step in the block runs eagerly, a multi-scene one too
-    (``multi_scene.graph_key`` defers to ``trainer.graph_key``): a step
-    replayed from its CUDA graph runs no Python, so a spy on the kernels'
-    calls sees only the steps that make them."""
-    from fruitnerf_tpu_torch.engine import trainer
+    (both ask ``step_graph.replay_key``): a step replayed from its CUDA
+    graph runs no Python, so a spy on the kernels' calls sees only the steps
+    that make them."""
+    from fruitnerf_tpu_torch.engine import step_graph
 
-    real = trainer.graph_key
-    trainer.graph_key = lambda *args, **kwargs: None
+    real = step_graph.replay_key
+    step_graph.replay_key = lambda *args, **kwargs: None
     try:
         yield
     finally:
-        trainer.graph_key = real
+        step_graph.replay_key = real
 
 
 @contextlib.contextmanager

@@ -6,10 +6,11 @@ Every random draw of a step is made in one place, ``draw_step``, from an
 explicit ``torch.Generator``; ``train_step`` takes the draws, so a test can
 inject the JAX step's draws instead.
 
-On the card a train step reads its per-step scalars (the learning rates,
-RAdam's bias corrections and rectifier, the proposal anneal) from the device
-(``StepScalars``), and a step that draws from its generator is replayed from
-a CUDA graph captured once per proposal-gate value (``step_graph.py``).
+A train step reads its per-step scalars (the learning rates, the
+optimizers' bias corrections, RAdam's rectifier, the proposal anneal) from
+the parameters' device (``StepScalars``), on every device alike; on the card
+a step that draws from its generator is replayed from a CUDA graph captured
+once per proposal-gate value (``step_graph.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import math
 import signal
 import threading
 import time
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -36,13 +38,14 @@ from ..models.fruit_model import (
     loss_dict,
     metrics_dict,
     proposal_anneal,
-    proposal_updated,
     sampler_draw_shapes,
 )
 from ..utils import metrics as M
 from ..utils.profiling import span
 from .checkpoints import save_checkpoint, save_checkpoint_async
-from .step_graph import StepGraphs
+
+if TYPE_CHECKING:
+    from .step_graph import StepGraphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,7 +137,8 @@ class RAdam(torch.optim.Optimizer):
     threshold 5), then the group's lr and its decoupled decay (wd*lr*p).
 
     Each step's scalars (the bias corrections, rho_t and the rectifier r_t)
-    are float32, computed on the host with numpy in optax's order. From step
+    are float32, computed on the host with numpy in optax's order and staged
+    on the device (``StepScalars``). From step
     6, rho_t = rho_inf - 2t b2^t / (1 - b2^t) subtracts about 1993 from 1999,
     so its float32 rounding moves r_t by up to 1e-2 of itself; optax rounds
     there, and ``torch.optim.RAdam`` (Python floats) does not. The
@@ -183,12 +187,11 @@ class RAdam(torch.optim.Optimizer):
                 self.state[p]["step"] += 1
 
     @torch.no_grad()
-    def step(self, scalars=None):
-        """Step every group with a gradient. ``scalars``: None (each
-        group's ``step_scalars`` from its count and rate on the host,
-        counted here), or one float32 device tensor of them a group
-        (``StepScalars``), which the caller counts (``advance``)."""
-        for i, group in enumerate(self.param_groups):
+    def step(self, scalars):
+        """Step every group with a gradient on ``scalars``, one float32
+        device tensor of its ``step_scalars`` a group (``StepScalars``);
+        the caller counts the step (``advance``)."""
+        for group, s in zip(self.param_groups, scalars):
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
@@ -198,12 +201,7 @@ class RAdam(torch.optim.Optimizer):
                     self.state[p].update(step=0, exp_avg=torch.zeros_like(p),
                                          exp_avg_sq=torch.zeros_like(p))
             states = [self.state[p] for p in params]
-            count = states[0]["step"] + 1
-            if scalars is None:
-                s = self.step_scalars(count, group["lr"], group["weight_decay"], group["eps"])
-            else:
-                s = scalars[i].unbind()
-            neg_lr, wd_lr, bc1, bc2, r, floor = s
+            neg_lr, wd_lr, bc1, bc2, r, floor = s.unbind()
             grads = [p.grad for p in params]
             mu = [st["exp_avg"] for st in states]
             nu = [st["exp_avg_sq"] for st in states]
@@ -215,21 +213,19 @@ class RAdam(torch.optim.Optimizer):
             den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
             # a device scalar added a tensor at a time: _foreach_add_ of one
             # does not capture
-            torch._foreach_add_(den, floor if scalars is None else [floor] * len(den))
+            torch._foreach_add_(den, [floor] * len(den))
             upd = torch._foreach_div(torch._foreach_mul(upd, r), den)
             torch._foreach_mul_(upd, neg_lr)
             if group["weight_decay"]:
                 torch._foreach_sub_(upd, torch._foreach_mul(params, wd_lr))
             torch._foreach_add_(params, upd)
-            if scalars is None:
-                for st in states:
-                    st["step"] = count
 
 
 class GroupOptimizer:
     """The train state's optimizer when a group takes RAdam:
     ``torch.optim.Adam`` over the Adam groups and ``RAdam`` over the others,
-    stepped together. ``state_dict`` holds each one's under its name."""
+    which ``optimizer_step`` steps. ``state_dict`` holds each one's under its
+    name."""
 
     def __init__(self, parts: dict[str, torch.optim.Optimizer]):
         self.parts = parts
@@ -241,10 +237,6 @@ class GroupOptimizer:
     def zero_grad(self, set_to_none: bool = True):
         for opt in self.parts.values():
             opt.zero_grad(set_to_none=set_to_none)
-
-    def step(self):
-        for opt in self.parts.values():
-            opt.step()
 
     def state_dict(self) -> dict:
         return {name: opt.state_dict() for name, opt in self.parts.items()}
@@ -280,10 +272,12 @@ def adam_scalars(count: int, lr: float, weight_decay: float, betas) -> tuple:
 
 @torch.no_grad()
 def adam_step(opt: torch.optim.Adam, scalars: list) -> None:
-    """``opt.step()`` as torch's foreach Adam makes it (decoupled decay, no
-    amsgrad), with each group's ``adam_scalars`` read from a float32 device
-    tensor (``StepScalars``): the same operations in the same order, so a
-    step can be captured. The step counts are left to ``count_step``."""
+    """``opt.step()`` as torch's foreach Adam makes it on the card (decoupled
+    decay, no amsgrad), with each group's ``adam_scalars`` read from a
+    float32 device tensor (``StepScalars``): the same operations in the same
+    order, so a step can be captured. On the CPU it rounds otherwise than
+    torch's single-tensor Adam there, by about one ulp a step. The step
+    counts are left to ``count_step``."""
     for group, s in zip(opt.param_groups, scalars):
         params = [p for p in group["params"] if p.grad is not None]
         if not params:
@@ -323,7 +317,10 @@ def make_optimizer(params: dict, config: TrainConfig):
     config names. Adam has eps outside the sqrt, as optax's; the appearance
     group's decoupled decay subtracts wd*lr*p, as optax's chain and AdamW
     do. With every group on Adam this is one ``torch.optim.Adam``; with a
-    RAdam group, a ``GroupOptimizer``."""
+    RAdam group, a ``GroupOptimizer``. Either holds the groups and their
+    state (and so keeps its checkpoint format); ``optimizer_step`` steps
+    them. A group's ``lr`` is its rate at step 0 and is not written again:
+    a step's rates live in its staged scalars (``StepScalars``)."""
     opts = _group_configs(config)
     groups = {"adam": [], "radam": []}
     for name, ps in _group_params(params).items():
@@ -348,19 +345,20 @@ class TrainState:
     params: dict  # {"model": {"field": ..., "proposal_networks": [...]}, "camera_opt": [N,6]}
     optimizer: torch.optim.Adam | GroupOptimizer
     step: int = 0
-    # on the card: the step's device scalars and its captured graphs (train_step)
+    # the step's staged scalars (stage_scalars) and, on the card, its captured
+    # graphs (step_graph.run_step)
     scalars: StepScalars | None = dataclasses.field(default=None, repr=False, compare=False)
     graphs: StepGraphs | None = dataclasses.field(default=None, repr=False, compare=False)
 
 
 class StepScalars:
-    """A train step's scalars on the card, in one float32 device buffer: the
-    proposal anneal, each Adam group's ``adam_scalars`` and each RAdam
-    group's ``RAdam.step_scalars``, computed on the host as the host's step
-    computes them. ``stage`` copies them in before a step from pinned memory,
-    which torch's host allocator does not hand out again until the copy has
-    run, so the host may run many steps ahead of the card. A step reads them
-    on the card, so a captured step serves every step of its proposal gate.
+    """A train step's scalars in one float32 buffer on the parameters'
+    device: the proposal anneal, each Adam group's ``adam_scalars`` and each
+    RAdam group's ``RAdam.step_scalars``, computed on the host. ``stage``
+    copies them in before a step; on the card from pinned memory, which
+    torch's host allocator does not hand out again until the copy has run,
+    so the host may run many steps ahead of the card. A step reads them on
+    the device, so a captured step serves every step of its proposal gate.
     Once the anneal is 1 the step takes the host's 1 (``annealing``), whose
     power is a copy."""
 
@@ -395,7 +393,17 @@ class StepScalars:
     def stage(self, step: int, config: TrainConfig):
         values = self.values(step, config)
         self.annealing = bool(values[0] != 1.0)
-        self.buffer.copy_(torch.from_numpy(values).pin_memory(), non_blocking=True)
+        host = torch.from_numpy(values)
+        self.buffer.copy_(host.pin_memory() if self.buffer.is_cuda else host, non_blocking=True)
+
+
+def stage_scalars(state: TrainState, config: TrainConfig) -> None:
+    """Stage the scalars of the state's next step (``state.scalars``, made
+    anew for another optimizer) on the parameters' device."""
+    if getattr(state.scalars, "optimizer", None) is not state.optimizer:
+        state.scalars = StepScalars(state.optimizer,
+                                    state.optimizer.param_groups[0]["params"][0].device)
+    state.scalars.stage(state.step, config)
 
 
 def init_train_state(
@@ -471,13 +479,15 @@ def _sparsity_loss(params: dict, data: DeviceDataset, config: TrainConfig, pts) 
     return mc.density_sparsity_mult * torch.mean(occ)
 
 
-def compute_loss(state: TrainState, data: DeviceDataset, config: TrainConfig, draws: StepDraws,
-                 anneal=None):
-    """-> (total loss, {loss name: tensor}, metrics) for one step's draws;
-    ``anneal``: the proposal anneal as a device scalar (``StepScalars``),
-    else the host's for ``state.step``."""
+def compute_loss(state: TrainState, data: DeviceDataset, config: TrainConfig, draws: StepDraws):
+    """-> (total loss, {loss name: tensor}, metrics) for one step's draws, at
+    the proposal anneal staged in ``state.scalars``: the device scalar while
+    the anneal runs (on the data's device, which a multi-scene step's scene
+    group may have other than the scalars'), else the host's."""
     params = state.params
     mc = config.model
+    scalars = state.scalars
+    anneal = scalars.anneal.to(data.images.device) if scalars.annealing else None
     with span("rays"):
         cam = data.train_indices[draws.slot]
         rgb_gt = data.images[cam, draws.py, draws.px].float() / 255.0
@@ -505,36 +515,28 @@ def compute_loss(state: TrainState, data: DeviceDataset, config: TrainConfig, dr
         return total, losses, metrics_dict(outputs, rgb_gt)
 
 
-def optimizer_step(state: TrainState, config: TrainConfig, scalars: StepScalars | None = None,
-                   count: bool = True) -> None:
+def optimizer_step(state: TrainState, config: TrainConfig, count: bool = True) -> None:
     """Step ``state.optimizer`` on the gradients in the parameters' ``.grad``
-    at the schedules' rates for ``state.step``, then count the step. With
-    ``scalars`` the rates and the optimizers' step scalars are read on the
-    card, staged by the caller; ``count=False`` leaves the counting to the
-    caller (a captured step is counted at each replay: ``count_step``)."""
-    opts = _group_configs(config)
+    at the rates and step scalars staged in ``state.scalars`` from
+    ``config`` (``stage_scalars``): ``adam_step`` for the Adam groups,
+    ``RAdam.step`` for the RAdam ones; then count the step. ``count=False``
+    leaves the counting to the caller (a captured step is counted at each
+    replay: ``count_step``)."""
     for group in state.optimizer.param_groups:
-        if scalars is None:
-            group["lr"] = learning_rate(opts[group["name"]], state.step, config.max_iters)
         for p in group["params"]:
             if p.grad is None:  # gated proposal nets: the optimizer still steps on zeros
                 p.grad = torch.zeros_like(p)
-    if scalars is None:
-        state.optimizer.step()
-        state.step += 1
-        return
     for opt in _parts(state.optimizer):
         if isinstance(opt, RAdam):
-            opt.step(scalars.radam)
+            opt.step(state.scalars.radam)
         else:
-            adam_step(opt, scalars.adam)
+            adam_step(opt, state.scalars.adam)
     if count:
         count_step(state)
 
 
 def count_step(state: TrainState) -> None:
-    """Count a step that read device scalars: the state's step and the
-    optimizers' step counts."""
+    """Count a step: the state's step and the optimizers' step counts."""
     state.step += 1
     for opt in _parts(state.optimizer):
         if isinstance(opt, RAdam):
@@ -587,54 +589,20 @@ def train_step(
     gradients and metrics are averaged over the ranks (the twin is
     ``make_train_step(config, mesh)``).
 
-    On the card the step reads its scalars from the device (``StepScalars``,
-    staged here), and a step that draws from ``generator``, without
-    ``mesh``, once the optimizer has state, replays the step captured for
-    its proposal gate (``step_graph.StepGraphs``), the same work on the same
-    tensors; a state's first such step runs eagerly. The graphs are
-    captured again when the parameters, the optimizer's state, the data,
-    the generator or the config are other objects."""
-    device = state.optimizer.param_groups[0]["params"][0].device
-    if device.type != "cuda":
-        return _step(state, data, config, generator, draws, mesh)
-    key = graph_key(state, config, draws, mesh) if stage_step(state, config, device) else None
-    if key is None:
-        return _step(state, data, config, generator, draws, mesh, state.scalars)
-    metrics = state.graphs.run(
-        key, graph_reads(state, data, config, [generator]), [generator],
-        lambda: _step(state, data, config, generator, None, None, state.scalars, count=False))
-    count_step(state)
-    return metrics
+    The step reads its scalars from the parameters' device (``StepScalars``,
+    staged first). On the card a step that draws from ``generator``,
+    without ``mesh``, replays the step captured for its proposal gate
+    (``step_graph.run_step``), the same work on the same tensors."""
+    from .step_graph import run_step
+
+    return run_step(state, data, config, [generator],
+                    lambda count: _step(state, data, config, generator, draws, mesh, count),
+                    eager=draws is not None or mesh is not None)
 
 
-def stage_step(state: TrainState, config: TrainConfig, device) -> bool:
-    """Stage a step's scalars on the card (``state.scalars``) -> whether the
-    step may replay a captured step: not a state's first step on the card,
-    which runs eagerly so that torch's lazy set-up is done."""
-    if state.scalars is None or state.scalars.optimizer is not state.optimizer:
-        state.scalars = StepScalars(state.optimizer, device)
-    state.scalars.stage(state.step, config)
-    if state.graphs is None:
-        state.graphs = StepGraphs()
-        return False
-    return True
-
-
-def graph_key(state: TrainState, config: TrainConfig, draws=None, mesh=None):
-    """On the card, which captured step replays this step: (its proposal
-    gate, whether the anneal still runs); None where the step runs eagerly:
-    given draws, a mesh, or an optimizer without state (a captured step must
-    not create it, or it would live in the graph's memory)."""
-    if draws is not None or mesh is not None or not all(
-            len(opt.state) == sum(len(g["params"]) for g in opt.param_groups)
-            for opt in _parts(state.optimizer)):
-        return None
-    mc = config.model
-    return proposal_updated(state.step, mc), proposal_anneal(state.step, mc) != 1.0
-
-
-def _step(state, data, config, generator, draws, mesh, scalars=None, count=True) -> dict:
-    """``train_step``'s work, its scalars on the host or on the card."""
+def _step(state, data, config, generator, draws, mesh, count=True) -> dict:
+    """``train_step``'s work on its staged scalars; ``count``: as in
+    ``optimizer_step``."""
     if draws is None:
         with span("draws"):
             draws = draw_step(config, data, generator)
@@ -642,22 +610,17 @@ def _step(state, data, config, generator, draws, mesh, scalars=None, count=True)
         from ..parallel.mesh import average_gradients, shard_draws
 
         draws = shard_draws(draws, mesh)
-    # the host's calls keep their signatures: the benchmark's fault tests patch both
-    if scalars is None:
-        total, losses, metrics = compute_loss(state, data, config, draws)
-    else:
-        total, losses, metrics = compute_loss(
-            state, data, config, draws, anneal=scalars.anneal if scalars.annealing else None)
+    total, losses, metrics = compute_loss(state, data, config, draws)
     with span("backward"):
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
     if mesh is not None:
         average_gradients(state.params, mesh)
     with span("optimizer"):
-        if scalars is None:
+        if count:  # an eager step's call keeps its signature: the benchmark's fault tests patch it
             optimizer_step(state, config)
         else:
-            optimizer_step(state, config, scalars, count)
+            optimizer_step(state, config, count=False)
     with span("metrics"):
         metrics = step_metrics(metrics, losses, total)
         if mesh is not None:

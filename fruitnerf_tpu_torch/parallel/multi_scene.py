@@ -19,14 +19,13 @@ which its parameters and then its draws are made, outside the transform
 for ``train_step``. ``make_multi_scene_chunk``'s ``lax.scan`` is not
 ported: a chunk equals its single steps.
 
-On the card the step is ``train_step``'s twin there too: it reads its
-scalars from the device (``trainer.StepScalars``) and, from a state's
-second step, replays the CUDA graph captured for its proposal gate
-(``engine/step_graph.py``): the S scenes' draws, with every scene's
-generator registered, the vmapped loss and gradient and the optimizer, so
-that the card and not the host's dispatch sets the pace. Given draws, an
-optimizer without state and scene groups on two or more devices run
-eagerly (``graph_key``).
+The step is ``train_step``'s twin in how it runs too
+(``engine/step_graph.py:run_step``): it reads its scalars from the device
+(``trainer.StepScalars``) and, on the card from a state's second step,
+replays the CUDA graph captured for its proposal gate: the S scenes' draws,
+with every scene's generator registered, the vmapped loss and gradient and
+the optimizer, so that the card and not the host's dispatch sets the pace.
+Given draws and scene groups on two or more devices run eagerly.
 
 Use: counting campaigns over many scenes (``scripts/multi_scene_campaign.py``).
 """
@@ -42,19 +41,16 @@ from ..bridge import index_tree, stack_trees, tree_leaves, tree_map, zip_trees
 from ..cameras.camera_opt import init_camera_opt
 from ..cameras.cameras import Cameras
 from ..configs import TrainConfig
-from ..engine import trainer
+from ..engine.step_graph import run_step
 from ..engine.trainer import (
     DeviceDataset,
     StepDraws,
     TrainState,
     camera_opt_metrics,
     compute_loss,
-    count_step,
     draw_step,
-    graph_reads,
     make_optimizer,
     optimizer_step,
-    stage_step,
     step_metrics,
 )
 from ..models.fruit_model import init_fruit_model
@@ -128,17 +124,14 @@ def init_multi_scene_state(
     return TrainState(params=params, optimizer=make_optimizer(params, config)), generators
 
 
-def _step_fn(config: TrainConfig, step: int, anneal=None):
+def _step_fn(config: TrainConfig, state: TrainState):
     """(params, dataset fields, draw fields) of one scene -> (total loss,
-    (losses, metrics)), for grad_and_value. ``anneal``: the proposal anneal
-    as a device scalar, shared by every scene (else the host's)."""
+    (losses, metrics)), for grad_and_value, at ``state``'s step and staged
+    scalars, which every scene shares."""
 
     def loss(params, fields, draws):
-        state = TrainState(params=params, optimizer=None, step=step)
-        args = state, _dataset(fields), config, StepDraws(**draws)
-        # the host's call keeps its signature: the benchmark's fault tests patch it
-        total, losses, metrics = (compute_loss(*args) if anneal is None
-                                  else compute_loss(*args, anneal=anneal))
+        scene = TrainState(params=params, optimizer=None, step=state.step, scalars=state.scalars)
+        total, losses, metrics = compute_loss(scene, _dataset(fields), config, StepDraws(**draws))
         return total, (losses, metrics)
 
     return vmap(grad_and_value(loss, has_aux=True))
@@ -171,39 +164,19 @@ def multi_scene_step(
     group slice and its data there, its gradients and metrics back); the
     parameters and the optimizer stay on the state's device.
 
-    On the card the step reads its scalars from the device, and a step
-    that ``graph_key`` gives a key replays the step captured for it
-    (``step_graph.StepGraphs``), the same work on the same tensors. The
-    graphs are captured again when the parameters, the optimizer's state,
-    the stacked data, a generator or the config are other objects."""
-    device = state.optimizer.param_groups[0]["params"][0].device
-    if device.type != "cuda":
-        return _step(state, datas, config, generators, draws, devices)
-    key = (graph_key(state, datas, config, draws, devices)
-           if stage_step(state, config, device) else None)
-    if key is None:
-        return _step(state, datas, config, generators, draws, devices, state.scalars)
-    metrics = state.graphs.run(
-        key, graph_reads(state, datas, config, generators), generators,
-        lambda: _step(state, datas, config, generators, None, None, state.scalars, count=False))
-    count_step(state)
-    return metrics
+    The step reads its scalars from the parameters' device, and on the
+    card a step that draws from ``generators`` on one group of scenes
+    replays the step captured for its proposal gate
+    (``step_graph.run_step``), the same work on the same tensors."""
+    groups = _groups(datas.images.shape[0], devices, None)
+    return run_step(state, datas, config, generators,
+                    lambda count: _step(state, datas, config, generators, draws, devices, count),
+                    eager=draws is not None or len(groups) > 1)
 
 
-def graph_key(state: TrainState, datas: DeviceDataset, config: TrainConfig, draws=None,
-              devices=None):
-    """On the card, which captured step replays this multi-scene step:
-    ``trainer.graph_key``'s (the proposal gate, whether the anneal still
-    runs); None where the step runs eagerly: as ``train_step``'s (given
-    draws, an optimizer without state), and scene groups on two or more
-    devices."""
-    if len(_groups(datas.images.shape[0], devices, None)) > 1:
-        return None
-    return trainer.graph_key(state, config, draws)
-
-
-def _step(state, datas, config, generators, draws, devices, scalars=None, count=True) -> dict:
-    """``multi_scene_step``'s work, its scalars on the host or on the card."""
+def _step(state, datas, config, generators, draws, devices, count=True) -> dict:
+    """``multi_scene_step``'s work on its staged scalars; ``count``: as in
+    ``optimizer_step``."""
     num_scenes = datas.images.shape[0]
     with span("draws"):
         if draws is None:
@@ -213,7 +186,7 @@ def _step(state, datas, config, generators, draws, devices, scalars=None, count=
             raise ValueError(f"{len(draws)} scenes of draws for {num_scenes} scenes")
         draw_fields = stack_trees([_draw_fields(d) for d in draws])
     fields = _fields(datas)
-    anneal = scalars.anneal if scalars is not None and scalars.annealing else None
+    fn = _step_fn(config, state)
     home = datas.images.device
     grads, totals, losses, metrics = [], [], [], []
 
@@ -227,17 +200,16 @@ def _step(state, datas, config, generators, draws, devices, scalars=None, count=
             def part(tree, sl=sl, dev=dev):  # views where the group is at home
                 return tree_map(tree, lambda t: t[sl].to(dev))
 
-            fn = _step_fn(config, state.step, None if anneal is None else anneal.to(dev))
             g, (total, (ls, ms)) = fn(part(state.params), part(fields), part(draw_fields))
             for out, tree in ((grads, g), (totals, total), (losses, ls), (metrics, ms)):
                 out.append(tree_map(tree, lambda t: t.to(home)))
         for p, g in zip(tree_leaves(state.params), tree_leaves(cat(grads))):
             p.grad = g
     with span("optimizer"):
-        if scalars is None:
+        if count:  # an eager step's call keeps its signature: the benchmark's fault tests patch it
             optimizer_step(state, config)
         else:
-            optimizer_step(state, config, scalars, count)
+            optimizer_step(state, config, count=False)
     with span("metrics"):
         out = step_metrics(cat(metrics), cat(losses), cat(totals))
         if config.use_camera_opt:

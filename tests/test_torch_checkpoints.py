@@ -35,6 +35,12 @@ def _config(grid: dict):
     return dataclasses.replace(cfg, model=dataclasses.replace(m, field=field))
 
 
+def _optimizer_step(state, config):
+    """The optimizer part of ``trainer.train_step``, on the gradients set."""
+    trainer.stage_scalars(state, config)
+    trainer.optimizer_step(state, config)
+
+
 def _trained_state(grid: dict, seed=0):
     """A state whose optimizer holds moments: one Adam step on random grads."""
     state = trainer.init_train_state(_config(grid), N_CAMS, "cpu",
@@ -42,7 +48,7 @@ def _trained_state(grid: dict, seed=0):
     g = torch.Generator().manual_seed(seed + 1)
     for t in bridge.tree_leaves(state.params):
         t.grad = torch.randn(t.shape, generator=g)
-    state.optimizer.step()
+    _optimizer_step(state, _config(grid))
     state.step = 7
     return state
 
@@ -72,7 +78,7 @@ def test_save_and_load_round_trip(tmp_path):
     before = w0.detach().clone()
     for t in bridge.tree_leaves(restored.params):
         t.grad = torch.ones_like(t)
-    restored.optimizer.step()
+    _optimizer_step(restored, _config(CORNER))
     assert not torch.equal(before, w0)
 
 

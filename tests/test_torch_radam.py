@@ -30,8 +30,9 @@ RESUME_AT = 7
 # in optax's order with float32 step scalars computed in optax's order
 # (observed <= 9.3e-10, most leaves bitwise). torch.optim.RAdam, whose
 # scalars are float64, misses optax by up to 1e-2 of a step's update from
-# step 6 on. The Adam groups step torch.optim.Adam, which rounds otherwise
-# than optax.adam (observed <= 4.8e-7, two ulps of the appearance table).
+# step 6 on. The Adam groups step trainer.adam_step (torch's foreach Adam
+# arithmetic on staged float32 scalars), which rounds otherwise than
+# optax.adam (observed <= 4.8e-7, two ulps of the appearance table).
 ATOL = {"radam": 1e-8, "adam": 1e-6}
 GROUP_OF = {"/camera_opt": "adam", "/model/field/appearance": "adam"}
 
@@ -65,13 +66,10 @@ def _port_state(tree, cfg):
 
 def _port_step(state, grads, cfg):
     """The optimizer part of ``trainer.train_step``, on given gradients."""
-    opts = trainer._group_configs(cfg)
     for t, g in zip(bridge.tree_leaves(state.params), bridge.tree_leaves(grads)):
         t.grad = torch.tensor(g)
-    for group in state.optimizer.param_groups:
-        group["lr"] = trainer.learning_rate(opts[group["name"]], state.step, cfg.max_iters)
-    state.optimizer.step()
-    state.step += 1
+    trainer.stage_scalars(state, cfg)
+    trainer.optimizer_step(state, cfg)
 
 
 @pytest.fixture(scope="module")

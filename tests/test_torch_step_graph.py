@@ -1,16 +1,18 @@
 """The train step as CUDA graphs (``engine/step_graph.py``) and the device
 scalars it reads (``engine/trainer.py:StepScalars``).
 
-On the CPU: the staged scalars equal ``learning_rate``, ``RAdam.scalars``
-and ``proposal_anneal`` bitwise across the camera group's warm-up, RAdam's
-threshold and the anneal's end; RAdam's update on staged scalars equals its
-update on the host's floats, and both equal the update it had before one
-formula covered both sides of the threshold; the engagement rule; the
-graph cache captures once a key and again when an input is replaced; the
-same rule and cache for the multi-scene step, whose card path on staged
-scalars equals its CPU path; the eager step on the CPU is the step as it
-was, over 12 steps; the card's eager step on staged scalars equals the
-host's; the ``graph`` spans and their reader.
+On the CPU, which runs the card's one step path eagerly: the staged
+scalars equal ``learning_rate``, ``RAdam.scalars`` and ``proposal_anneal``
+bitwise across the camera group's warm-up, RAdam's threshold and the
+anneal's end; RAdam's update on staged scalars equals its frozen update on
+the host's floats, and both equal the update it had before one formula
+covered both sides of the threshold; the replay rule; the graph cache
+captures once a key and again when an input is replaced; the same rule and
+cache for the multi-scene step, which equals the frozen staged multi-scene
+step bitwise; the eager step against the step on torch's Adam as it was,
+over 12 steps, to a measured bound; ``train_step`` equals the frozen staged
+step bitwise; an eager step's calls of the loss and the optimizer; the
+``graph`` spans and their reader.
 
 On a card (marked ``gpu``, skipped without one): 12 steps from a resumed
 state, graphed against eager on the same draws, on the grid preset (Adam)
@@ -34,14 +36,17 @@ import numpy as np
 import pytest
 import torch
 
-from fruitnerf_tpu_torch.bridge import tree_leaves
+from torch.func import grad_and_value, vmap
+
+from fruitnerf_tpu_torch.bridge import stack_trees, tree_leaves
 from fruitnerf_tpu_torch.configs import OptimizerConfig, fruit_nerf_smoke, get_preset
 from fruitnerf_tpu_torch.data.builder import dataset_from_scene
 from fruitnerf_tpu_torch.data.synthetic import SyntheticSceneConfig, render_scene
 from fruitnerf_tpu_torch.engine import step_graph, trainer
+from fruitnerf_tpu_torch.engine.step_graph import replay_key
 from fruitnerf_tpu_torch.engine.trainer import (
-    RAdam, StepScalars, draw_step, graph_key, graph_reads, init_train_state,
-    learning_rate, make_optimizer, train_step,
+    RAdam, StepScalars, draw_step, graph_reads, init_train_state, learning_rate,
+    make_optimizer, stage_scalars, train_step,
 )
 from fruitnerf_tpu_torch.models.fruit_model import proposal_anneal
 from fruitnerf_tpu_torch.ops import hash_grid as hg
@@ -168,17 +173,57 @@ class _SeedRAdam(RAdam):
                 st["step"] = count
 
 
+class _HostRAdam(RAdam):
+    """``RAdam.step`` on the host's floats, as it was beside the step on
+    staged scalars (frozen): each group's ``step_scalars`` from its count
+    and rate, counted here."""
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = self.B1, self.B2
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(step=0, exp_avg=torch.zeros_like(p),
+                                         exp_avg_sq=torch.zeros_like(p))
+            states = [self.state[p] for p in params]
+            count = states[0]["step"] + 1
+            neg_lr, wd_lr, bc1, bc2, r, floor = self.step_scalars(
+                count, group["lr"], group["weight_decay"], group["eps"])
+            grads = [p.grad for p in params]
+            mu = [st["exp_avg"] for st in states]
+            nu = [st["exp_avg_sq"] for st in states]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
+            upd = torch._foreach_div(mu, bc1)
+            den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+            torch._foreach_add_(den, floor)
+            upd = torch._foreach_div(torch._foreach_mul(upd, r), den)
+            torch._foreach_mul_(upd, neg_lr)
+            if group["weight_decay"]:
+                torch._foreach_sub_(upd, torch._foreach_mul(params, wd_lr))
+            torch._foreach_add_(params, upd)
+            for st in states:
+                st["step"] = count
+
+
 @pytest.mark.parametrize("weight_decay", [0.0, 1e-3], ids=["no_decay", "decay"])
 def test_radam_on_staged_scalars_equals_the_host_floats_and_the_seed(weight_decay):
     """Counts 1-10 from the same gradients: the update on staged float32
-    scalars, on the host's floats, and the frozen update are bitwise
+    scalars, the frozen update on the host's floats, and the frozen update
+    of before one formula covered both sides of the threshold are bitwise
     equal; below the threshold the denominator is exactly 1."""
     rng = np.random.default_rng(1)
     init = [rng.standard_normal(s).astype(np.float32) for s in ((30, 4), (7,))]
     runs = []
     for kind in ("staged", "host", "seed"):
         ps = [torch.tensor(a) for a in init]
-        cls = _SeedRAdam if kind == "seed" else RAdam
+        cls = {"staged": RAdam, "host": _HostRAdam, "seed": _SeedRAdam}[kind]
         opt = cls([{"params": ps, "lr": 1e-2, "eps": 1e-8, "weight_decay": weight_decay}])
         for count in range(1, 11):
             g = np.random.default_rng(100 + count)
@@ -197,27 +242,47 @@ def test_radam_on_staged_scalars_equals_the_host_floats_and_the_seed(weight_deca
         assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
 
 
-def test_the_engagement_rule(config, data):
-    """Given draws, a mesh or an optimizer without state: eager (no key).
-    With state, the key is the proposal gate and whether the anneal runs:
-    four keys over steps that cross both. RAdam below its threshold replays
-    too (its rectifier is a staged scalar). On the CPU the step stages
-    nothing and captures nothing."""
+def _eager_reasons(monkeypatch, module, steps) -> list[bool]:
+    """The ``eager`` that each of ``steps`` (callables) hands ``run_step``."""
+    seen = []
+    with monkeypatch.context() as m:
+        m.setattr(module, "run_step", lambda *args, eager: seen.append(eager) or {})
+        for step in steps:
+            step()
+    return seen
+
+
+def test_the_engagement_rule(config, data, monkeypatch):
+    """No graphs (the CPU, or a state's first step on a card), ``eager`` or
+    an optimizer without state: no key. With graphs and state, the key is
+    the proposal gate and whether the anneal runs: four keys over steps
+    that cross both. RAdam below its threshold replays too (its rectifier
+    is a staged scalar). ``train_step`` runs eagerly with given draws or a
+    mesh. On the CPU the step stages its scalars there and captures
+    nothing."""
     cfg = _radam(config)
     state = init_train_state(cfg, data.cameras.num_cameras, "cpu",
                              generator=torch.Generator().manual_seed(0))
     state.step = START
     gen = torch.Generator().manual_seed(1)
-    assert graph_key(state, cfg) is None  # no optimizer state yet
+    stage_scalars(state, cfg)
+    state.graphs = step_graph.StepGraphs()
+    assert replay_key(state, cfg) is None  # no optimizer state yet
+    state.graphs = None
     train_step(state, data, cfg, gen)
-    assert state.scalars is None and state.graphs is None
-    assert graph_key(state, cfg, draws=draw_step(cfg, data, gen)) is None
-    assert graph_key(state, cfg, mesh=object()) is None
+    assert state.graphs is None and state.scalars.buffer.device.type == "cpu"
+    assert replay_key(state, cfg) is None  # no graphs
+    state.graphs = step_graph.StepGraphs()  # as a card's first step leaves them
+    assert replay_key(state, cfg, eager=True) is None
     radam = state.optimizer.parts["radam"]
     assert trainer.step_count(radam, radam.param_groups[0]) == 1
-    keys = {graph_key(dataclasses.replace(state, step=s), cfg) for s in range(START, START + 7)}
+    keys = {replay_key(dataclasses.replace(state, step=s), cfg) for s in range(START, START + 7)}
     # (the proposals train, the anneal runs): from 195 every 5th step trains, the anneal ends at 200
     assert keys == {(True, True), (False, True), (True, False), (False, False)}
+    assert _eager_reasons(monkeypatch, step_graph, [
+        lambda: train_step(state, data, cfg, gen),
+        lambda: train_step(state, data, cfg, draws=draw_step(cfg, data, gen)),
+        lambda: train_step(state, data, cfg, gen, mesh=object())]) == [False, True, True]
 
 
 class _FakeCapture:
@@ -246,7 +311,6 @@ def test_the_cache_captures_a_gate_once_and_again_after_a_replacement(config, da
                              generator=torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     train_step(state, data, config, gen)
-    state.scalars = StepScalars(state.optimizer, "cpu")
     graphs = step_graph.StepGraphs()
 
     def run(key, d=data):
@@ -279,25 +343,32 @@ def _multi(config, data, scenes=2):
     return state, datas, gens
 
 
-def test_the_multi_scene_engagement_rule(config, data):
-    """``train_step``'s rule (no optimizer state, given draws: eager; else
-    the proposal gate and whether the anneal runs, four keys over steps
-    that cross both), and scene groups on two or more devices eager, one
-    group not. On the CPU the step stages nothing and captures nothing."""
+def test_the_multi_scene_engagement_rule(config, data, monkeypatch):
+    """``train_step``'s rule (no graphs, which the CPU never makes, or no
+    optimizer state: no key; else the proposal gate and whether the anneal
+    runs, four keys over steps that cross both), and the multi-scene step
+    eager with given draws or scene groups on two or more devices, not with
+    one group. On the CPU the step stages its scalars there and captures
+    nothing."""
     state, datas, gens = _multi(config, data)
     state.step = START
-    assert ms.graph_key(state, datas, config) is None  # no optimizer state yet
+    stage_scalars(state, config)
+    state.graphs = step_graph.StepGraphs()
+    assert replay_key(state, config) is None  # no optimizer state yet
+    state.graphs = None
     ms.multi_scene_step(state, datas, config, gens)
-    assert state.scalars is None and state.graphs is None
-    draws = [draw_step(config, ms.scene_dataset(datas, s), g) for s, g in enumerate(gens)]
-    assert ms.graph_key(state, datas, config, draws=draws) is None
-    assert ms.graph_key(state, datas, config, devices=["cpu", "cpu"]) is None
     ms.multi_scene_step(state, datas, config, gens, devices=["cpu", "cpu"])
-    assert state.scalars is None and state.graphs is None
-    for devices in (None, ["cpu"]):
-        keys = {ms.graph_key(dataclasses.replace(state, step=s), datas, config, devices=devices)
-                for s in range(START, START + 7)}
-        assert keys == {(True, True), (False, True), (True, False), (False, False)}
+    assert state.graphs is None and state.scalars.buffer.device.type == "cpu"
+    state.graphs = step_graph.StepGraphs()
+    keys = {replay_key(dataclasses.replace(state, step=s), config) for s in range(START, START + 7)}
+    assert keys == {(True, True), (False, True), (True, False), (False, False)}
+    draws = [draw_step(config, ms.scene_dataset(datas, s), g) for s, g in enumerate(gens)]
+    assert _eager_reasons(monkeypatch, ms, [
+        lambda: ms.multi_scene_step(state, datas, config, gens),
+        lambda: ms.multi_scene_step(state, datas, config, gens, devices=["cpu"]),
+        lambda: ms.multi_scene_step(state, datas, config, draws=draws),
+        lambda: ms.multi_scene_step(state, datas, config, gens, devices=["cpu", "cpu"]),
+    ]) == [False, False, True, True]
 
 
 def _replace(what, state, datas, gens):
@@ -332,7 +403,6 @@ def test_the_multi_scene_cache_captures_again_after_a_replacement(config, data, 
     _FakeCapture.made = 0
     state, datas, gens = _multi(config, data)
     ms.multi_scene_step(state, datas, config, gens)
-    state.scalars = StepScalars(state.optimizer, "cpu")
     graphs = step_graph.StepGraphs()
 
     def run(key, d):
@@ -349,45 +419,93 @@ def test_the_multi_scene_cache_captures_again_after_a_replacement(config, data, 
     assert _FakeCapture.made == 3
 
 
+def _both(cfg):
+    """RAdam on the fields and proposals, Adam on the appearance and the
+    camera, whose warm-up is gone, so that every group moves."""
+    return dataclasses.replace(
+        _radam(cfg), camera_opt=dataclasses.replace(cfg.camera_opt, warmup_steps=0))
+
+
+def _frozen_stage(state, config):
+    """The step's scalars copied in by hand (frozen)."""
+    if state.scalars is None:
+        state.scalars = StepScalars(state.optimizer, "cpu")
+    values = state.scalars.values(state.step, config)
+    state.scalars.buffer.copy_(torch.from_numpy(values))
+    state.scalars.annealing = bool(values[0] != 1.0)
+
+
+def _frozen_optimizer_step(state):
+    """The optimizer step on staged scalars, as the card's eager step took
+    it (frozen)."""
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    for opt in trainer._parts(state.optimizer):
+        if isinstance(opt, RAdam):
+            opt.step(state.scalars.radam)
+        else:
+            trainer.adam_step(opt, state.scalars.adam)
+    trainer.count_step(state)
+
+
+def _frozen_multi_step(state, datas, config, gens):
+    """The card's eager multi-scene step on staged scalars (frozen): the
+    scenes' draws, one vmapped loss and gradient whose scenes share the
+    staged anneal, the optimizer -> the [S] losses."""
+    _frozen_stage(state, config)
+    draws = [draw_step(config, ms.scene_dataset(datas, s), g) for s, g in enumerate(gens)]
+    draw_fields = stack_trees([{f.name: getattr(d, f.name) for f in dataclasses.fields(d)}
+                               for d in draws])
+
+    def loss(params, fields, d):
+        scene = trainer.TrainState(params=params, optimizer=None, step=state.step,
+                                   scalars=state.scalars)
+        total, losses, metrics = trainer.compute_loss(scene, ms._dataset(fields), config,
+                                                      trainer.StepDraws(**d))
+        return total, (losses, metrics)
+
+    grads, (total, _) = vmap(grad_and_value(loss, has_aux=True))(
+        state.params, ms._fields(datas), draw_fields)
+    for p, g in zip(tree_leaves(state.params), tree_leaves(grads)):
+        p.grad = g
+    _frozen_optimizer_step(state)
+    return total.detach()
+
+
 def test_the_multi_scene_step_on_staged_scalars_equals_the_step_on_host_floats(
         config, data, one_thread):
-    """The card's eager multi-scene step (the rates and RAdam's scalars read
-    from a buffer, the anneal a device scalar closed over by the vmapped
-    loss, shared by the scenes), run on the CPU, against
-    ``multi_scene_step`` there: 12 steps of 2 scenes from 195 (the anneal's
-    end, both gate values, RAdam's threshold), RAdam on every group as in
-    the single-scene test: bitwise equal [S] losses, parameters and step
-    counts."""
-    cfg = _radam(config)
-    cfg = dataclasses.replace(
-        cfg, appearance_opt=dataclasses.replace(cfg.appearance_opt, name="radam"),
-        camera_opt=dataclasses.replace(cfg.camera_opt, name="radam", warmup_steps=0))
+    """``multi_scene_step`` on the CPU against the card's eager multi-scene
+    step on staged scalars (frozen; the anneal a device scalar closed over
+    by the vmapped loss, shared by the scenes): 12 steps of 2 scenes from
+    195 (the anneal's end, both gate values, RAdam's threshold), RAdam and
+    Adam groups: bitwise equal [S] losses, parameters and step counts."""
+    cfg = _both(config)
     runs = []
-    for staged in (False, True):
+    for frozen in (False, True):
         state, datas, gens = _multi(cfg, data)
         state.step = START
-        scalars = StepScalars(state.optimizer, "cpu")
-        losses = []
-        for _ in range(STEPS):
-            if staged:
-                scalars.buffer.copy_(torch.from_numpy(scalars.values(state.step, cfg)))
-                m = ms._step(state, datas, cfg, gens, None, None, scalars)
-            else:
-                m = ms.multi_scene_step(state, datas, cfg, gens)
-            losses.append(m["total_loss"])
+        losses = [(_frozen_multi_step(state, datas, cfg, gens) if frozen
+                   else ms.multi_scene_step(state, datas, cfg, gens)["total_loss"])
+                  for _ in range(STEPS)]
         counts = [trainer.step_count(opt, g) for opt in trainer._parts(state.optimizer)
                   for g in opt.param_groups]
         runs.append((torch.stack(losses), [t.detach().clone() for t in tree_leaves(state.params)],
                      state.step, counts))
     (la, pa, sa, ca), (lb, pb, sb, cb) = runs
     assert la.shape == (STEPS, 2)
+    assert set(trainer.group_algorithms(state.optimizer).values()) == {"adam", "radam"}
     assert torch.equal(la, lb) and (sa, ca) == (sb, cb) == (START + STEPS, ca)
     assert all(torch.equal(a, b) for a, b in zip(pa, pb))
 
 
 def _seed_step(state, data, config, generator):
     """The eager train step as it was before its scalars could live on the
-    device (frozen; ``compute_loss`` without ``anneal`` takes the host's)."""
+    device (frozen): torch's Adam and the frozen RAdam on the host's floats
+    at the groups' rates. Its loss reads the staged anneal, which equals
+    the host's."""
+    _frozen_stage(state, config)
     draws = draw_step(config, data, generator)
     total, losses, metrics = trainer.compute_loss(state, data, config, draws)
     state.optimizer.zero_grad(set_to_none=True)
@@ -398,8 +516,20 @@ def _seed_step(state, data, config, generator):
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-    state.optimizer.step()
+    for opt in trainer._parts(state.optimizer):
+        opt.step()
     state.step += 1
+    return total.detach()
+
+
+def _frozen_step(state, data, config, generator):
+    """The card's eager train step on staged scalars (frozen)."""
+    _frozen_stage(state, config)
+    draws = draw_step(config, data, generator)
+    total, _, _ = trainer.compute_loss(state, data, config, draws)
+    state.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    _frozen_optimizer_step(state)
     return total.detach()
 
 
@@ -412,11 +542,22 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
+# train_step against the step on torch's Adam, 12 steps on the smoke preset,
+# absolute: the Adam groups take the card's arithmetic (adam_step), which
+# rounds otherwise than torch's single-tensor CPU Adam by about one ulp a
+# step. Observed: losses 5.96e-8 (one ulp of a loss of 0.5-1), MLP weights
+# of O(1) 5.96e-8, hash-table entries of 1e-2 2.56e-6 (Adam's normalised
+# step on gradients near eps moves them by a share of the rate). The RAdam
+# case (Adam on the appearance and the camera only) came out bitwise.
+SEED_STEP_ATOL = {"loss": 1.2e-7, "param": 5e-6}
+
+
 @pytest.mark.parametrize("algo", ["adam", "radam"])
 def test_the_eager_step_on_the_cpu_is_the_seed_step(config, data, algo, one_thread):
     """Twelve steps from step 195 (the anneal's end and both gate values;
     with RAdam its threshold too), ``train_step`` against the frozen step on
-    the same draws: every loss and parameter bitwise equal."""
+    torch's Adam on the same draws: every loss and parameter within
+    ``SEED_STEP_ATOL``."""
     cfg = _radam(config) if algo == "radam" else config
     runs = []
     for frozen in (False, True):
@@ -430,44 +571,86 @@ def test_the_eager_step_on_the_cpu_is_the_seed_step(config, data, algo, one_thre
                    else train_step(state, data, cfg, gen)["total_loss"]) for _ in range(STEPS)]
         runs.append((torch.stack(losses), [t.detach().clone() for t in tree_leaves(state.params)]))
     (la, pa), (lb, pb) = runs
-    assert torch.equal(la, lb)
-    assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+    torch.testing.assert_close(la, lb, rtol=0, atol=SEED_STEP_ATOL["loss"])
+    for a, b in zip(pa, pb):
+        torch.testing.assert_close(a, b, rtol=0, atol=SEED_STEP_ATOL["param"])
 
 
 def test_the_step_on_staged_scalars_equals_the_step_on_host_floats(config, data, one_thread):
-    """The card's eager step (RAdam's scalars and the anneal read from a
-    buffer, ``trainer._step`` with ``StepScalars``), run on the CPU, against
-    ``train_step`` there, 12 steps from 195 with RAdam on every group (the
-    card's Adam is capturable, which the CPU's is not: the card tests hold
-    it): bitwise equal, and the step counts agree."""
-    cfg = _radam(config)
-    cfg = dataclasses.replace(
-        cfg, appearance_opt=dataclasses.replace(cfg.appearance_opt, name="radam"),
-        camera_opt=dataclasses.replace(cfg.camera_opt, name="radam", warmup_steps=0))
-    assert set(trainer.group_algorithms(make_optimizer(
-        init_train_state(cfg, data.cameras.num_cameras, "cpu").params, cfg)).values()) == {"radam"}
+    """``train_step`` on the CPU against the card's eager step on staged
+    scalars (frozen), 12 steps from 195 with RAdam and Adam groups:
+    bitwise equal, and the step counts agree."""
+    cfg = _both(config)
     runs = []
-    for staged in (False, True):
+    for frozen in (False, True):
         gen = torch.Generator().manual_seed(3)
         state = init_train_state(cfg, data.cameras.num_cameras, "cpu",
                                  generator=torch.Generator().manual_seed(0))
         state.step = START
-        scalars = StepScalars(state.optimizer, "cpu")
-        losses = []
-        for _ in range(STEPS):
-            if staged:
-                scalars.buffer.copy_(torch.from_numpy(scalars.values(state.step, cfg)))
-                m = trainer._step(state, data, cfg, gen, None, None, scalars)
-            else:
-                m = train_step(state, data, cfg, gen)
-            losses.append(m["total_loss"])
+        losses = [(_frozen_step(state, data, cfg, gen) if frozen
+                   else train_step(state, data, cfg, gen)["total_loss"]) for _ in range(STEPS)]
         counts = [trainer.step_count(opt, g) for opt in trainer._parts(state.optimizer)
                   for g in opt.param_groups]
         runs.append((torch.stack(losses), [t.detach().clone() for t in tree_leaves(state.params)],
                      state.step, counts))
     (la, pa, sa, ca), (lb, pb, sb, cb) = runs
+    assert set(trainer.group_algorithms(state.optimizer).values()) == {"adam", "radam"}
     assert torch.equal(la, lb) and (sa, ca) == (sb, cb) == (START + STEPS, ca)
     assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+
+
+@pytest.mark.parametrize("step", ["train_step", "multi_scene_step"])
+def test_an_eager_step_calls_the_loss_and_the_optimizer_as_agreed(config, data, monkeypatch,
+                                                                  step):
+    """Two eager steps on the CPU call exactly ``compute_loss(state, data,
+    config, draws)`` (a multi-scene step once a scene, each scene's state
+    carrying the step's staged scalars) and ``optimizer_step(state,
+    config)`` (on scalars staged for the step), through the names in
+    ``trainer`` and in ``multi_scene``, which the benchmark's fault tests
+    patch."""
+    cfg = _both(config)
+    module = trainer if step == "train_step" else ms
+    calls = []
+    loss, opt_step = module.compute_loss, module.optimizer_step
+
+    def spy_loss(*args, **kwargs):
+        calls.append(("loss", args, kwargs))
+        return loss(*args, **kwargs)
+
+    def spy_step(*args, **kwargs):
+        calls.append(("optimizer", args, kwargs))
+        state, config = args
+        assert np.array_equal(state.scalars.buffer.numpy(),
+                              state.scalars.values(state.step, config))
+        return opt_step(*args, **kwargs)
+
+    monkeypatch.setattr(module, "compute_loss", spy_loss)
+    monkeypatch.setattr(module, "optimizer_step", spy_step)
+    if step == "train_step":
+        state = init_train_state(cfg, data.cameras.num_cameras, "cpu",
+                                 generator=torch.Generator().manual_seed(0))
+        gen = torch.Generator().manual_seed(1)
+        datas = data
+        steps = [lambda: train_step(state, data, cfg, gen)] * 2
+    else:
+        state, datas, gens = _multi(cfg, data)
+        steps = [lambda: ms.multi_scene_step(state, datas, cfg, gens)] * 2
+    state.step = START
+    for i, run in enumerate(steps):
+        run()
+        kinds = [c[0] for c in calls]
+        assert kinds == ["loss", "optimizer"] * (i + 1), kinds
+    for kind, args, kwargs in calls:
+        assert kwargs == {}
+        if kind == "optimizer":
+            assert len(args) == 2 and args[0] is state and args[1] is cfg
+            continue
+        scene, d, c, draws = args
+        assert c is cfg and isinstance(draws, trainer.StepDraws)
+        assert scene.scalars is state.scalars
+        assert (scene is state and d is datas) if step == "train_step" else (
+            scene.optimizer is None and tuple(d.images.shape) == tuple(data.images.shape))
+    assert state.step == START + 2
 
 
 def _span(name, a, b):
