@@ -8,10 +8,12 @@ Here the step is ``torch.func.vmap(torch.func.grad_and_value(loss))`` over
 the stacked parameters, the stacked ``DeviceDataset`` fields (cameras
 included) and the stacked draws. The grid encodings' autograd Functions
 have ``vmap`` rules that launch each CUDA kernel once for all scenes
-(``ops/hash_grid.py``), so one host launch sequence drives S scenes of
-device work; the card idles most of an eager single-scene step (PERF.md),
-which is what this buys back. One optimizer steps the stacked leaves: Adam
-and RAdam are elementwise, so that is S independent optimizers.
+(``ops/hash_grid.py``), and the MLP layers' products one ``mm`` a scene, the
+single step's own products (``fields/mlp.py:_SceneLinear``), so one host
+launch sequence drives S scenes of device work; the card idles most of an
+eager single-scene step (PERF.md), which is what this buys back. One
+optimizer steps the stacked leaves: Adam and RAdam are elementwise, so that
+is S independent optimizers.
 
 Each scene has its own generator (the twin's ``jax.random.split``), from
 which its parameters and then its draws are made, outside the transform
