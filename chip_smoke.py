@@ -40,6 +40,10 @@ Phases, each printing its lines:
            training path reaches it); then K1 alone at an export batch (2^22
            probes, placed as the orchard export places them, the box's faces
            zeroed by the AABB selector)
+  freq     the frequency-encoding pair (nerf_encode) at the main path's
+           shapes in bf16: forward bitwise the plain composition, backward
+           bitwise its closed form and autograd; medians of each kernel and of the plain
+           composition, and each kernel's bound (bytes at 3.35 TB/s)
   parity   one small train step's losses and colour-MLP gradient on the GPU
            (kernels) against the CPU (plain version), same parameters and draws
   slice    the cell-mode training steps: finite losses, PSNR rising, every
@@ -336,7 +340,11 @@ def kernel_resources(log: str) -> list[dict]:
 
 def build_phase(hg) -> list[dict]:
     """Build the kernels and print each one's resources; the cell kernels
-    and the corner kernels at F = 2 and F = 4 must not spill."""
+    and the corner kernels at F = 2 and F = 4 must not spill. The
+    frequency-encoding pair is left out of that rule: its stack frame is
+    that of sinf's and cosf's slow path (arguments past 105,615, which the
+    fields' encodings never reach), its backward spills 12 bytes at 32
+    registers, and the freq phase times it."""
     info = hg.build_kernels()
     kernels = kernel_resources(info.log)
     print(f"build: {info.seconds:.2f} s -> {info.path.parent.name}; {len(kernels)} kernels")
@@ -345,6 +353,8 @@ def build_phase(hg) -> list[dict]:
               f"spill stores {k['spill_stores']} B, loads {k['spill_loads']} B")
     check(len(kernels) > 0, "nvcc's log names no kernel")
     for k in kernels:
+        if k["name"].startswith("freq_encode"):
+            continue
         if "<" not in k["name"] or k["name"].endswith(("<2>", "<4>")):
             check(k["spill_stores"] == k["spill_loads"] == 0, f"{k['name']} spills registers")
     return kernels
@@ -729,6 +739,57 @@ def kernel_phase(hg, cell_layout, corner_grid, dev, seed: int) -> list[dict]:
     k1["max_abs_err"] = max(k1["max_abs_err"], k1_export["export_max_abs_err"])
     k1.update(k1_export)
     return entries
+
+
+# (rows, octaves) of nerf_encode on the main path, D = 3: big tpu's fine
+# samples, its proposal fields' samples (8192 rays x 512 and x 256), an
+# eval-sized chunk
+FREQ_SHAPES = ((1_048_576, 14), (4_194_304, 5), (2_097_152, 7), (4096, 14))
+
+
+def freq_phase(dev, seed: int) -> list[dict]:
+    """The frequency-encoding pair (``csrc/freq_encode.cu``) at the main
+    path's shapes, in bf16 (the MLPs' dtype): the forward bitwise the plain
+    composition and its cast, the backward bitwise the closed form and
+    autograd of the plain composition; median
+    times of each kernel and of the plain composition's forward and
+    autograd backward, and each kernel's bound (bytes at 3.35 TB/s: x read
+    and the encoding written; x and the gradient read and dx written)."""
+    from fruitnerf_tpu_torch.ops import freq_encode as fe
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows_out = []
+    for rows, octaves in FREQ_SHAPES:
+        dims, dtype = 3, torch.bfloat16
+        width = dims * (1 + 2 * octaves)
+        x = torch.rand((rows, dims), generator=g, device=dev) * 2.0 - 1.0
+        grad = torch.randn((rows, width), generator=g, device=dev).to(dtype)
+        out = fe.freq_encode_fwd_cuda(x, octaves, dtype)
+        dx = fe.freq_encode_bwd_cuda(x, grad, octaves)
+        leaf = x.clone().requires_grad_(True)
+        plain_out = fe.freq_encode_torch(leaf, octaves, dtype)
+        check(torch.equal(out, plain_out.detach()),
+              f"freq_encode forward at {rows} x {octaves} is not the plain composition")
+        check(torch.equal(dx, fe.freq_encode_bwd_torch(x, grad, octaves)),
+              f"freq_encode backward at {rows} x {octaves} is not the closed form")
+        auto = torch.autograd.grad(plain_out, leaf, grad, retain_graph=True)[0]
+        check(torch.equal(dx, auto),
+              f"freq_encode backward at {rows} x {octaves} is not autograd's")
+        n = 30 if rows <= LARGE_P else 10
+        r = {"rows": rows, "dims": dims, "octaves": octaves, "dtype": "bf16",
+             "fwd_ms": median_ms(lambda: fe.freq_encode_fwd_cuda(x, octaves, dtype), n),
+             "fwd_plain_ms": median_ms(lambda: fe.freq_encode_torch(x, octaves, dtype), n),
+             "bwd_ms": median_ms(lambda: fe.freq_encode_bwd_cuda(x, grad, octaves), n),
+             "bwd_plain_ms": median_ms(lambda: torch.autograd.grad(
+                 plain_out, leaf, grad, retain_graph=True), n),
+             "fwd_bound_ms": (4 * dims + 2 * width) * rows / HBM_BYTES_PER_S * 1e3,
+             "bwd_bound_ms": (8 * dims + 2 * width) * rows / HBM_BYTES_PER_S * 1e3}
+        print(f"freq: {rows} x {octaves} octaves bf16: forward {r['fwd_ms']:.4f} ms "
+              f"(bound {r['fwd_bound_ms']:.4f}, plain {r['fwd_plain_ms']:.4f}); backward "
+              f"{r['bwd_ms']:.4f} ms (bound {r['bwd_bound_ms']:.4f}, plain autograd "
+              f"{r['bwd_plain_ms']:.4f}); both bitwise the plain composition's")
+        rows_out.append(r)
+    return rows_out
 
 
 def export_batch(dev):
@@ -1252,14 +1313,15 @@ def orchard_phase(dev, iters: int, export_n: int, hg, name: str, variant: str = 
         chunks = math.ceil(ORCHARD["image_size"] ** 2 / cfg.eval_rays_per_chunk)
         want = predicted_hash_launches(cfg, range(iters), iters // cfg.steps_per_eval, chunks)
         print(f"{tag}: predicted launches in train_loop {want}")
-        check(train_counts == want, "the parity run's launches differ from the prediction")
+        check(grid_launches(train_counts) == want,
+              "the parity run's launches differ from the prediction")
     pts = first["export_points"]
     print(f"{tag}: export N={export_n} ({export_n**3} probes, {batches} batches) in "
           f"{first['export_s']:.3f} s = {first['export_probes_per_sec']:.1f} probes/s; points "
           f"{pts}; launches {export_counts}")
     check(export_counts[fwd] == batches,
           f"export launched {fwd} {export_counts[fwd]} times for {batches} batches")
-    check(sum(export_counts.values()) == batches, f"export launched another kernel: {export_counts}")
+    check(sum(grid_launches(export_counts).values()) == batches, f"export launched another kernel: {export_counts}")
     check(pts["density"] > 0, "the density cloud is empty")
     for cloud, c in first["counting"].items():
         if "error" in c:
@@ -1369,6 +1431,15 @@ def hash_step_layouts(hg, cfg, captured: list, dev, seed: int) -> dict:
     return out
 
 
+GRID_KERNELS = ("cell_encode_fwd", "cell_encode_bwd", "corner_encode_fwd", "corner_encode_bwd")
+
+
+def grid_launches(counts: dict) -> dict:
+    """The grid kernels' launch counts (K1-K4), the frequency-encoding
+    pair's left out: the predictions below count the grid kernels."""
+    return {k: counts[k] for k in GRID_KERNELS}
+
+
 def predicted_hash_launches(cfg, steps: range, evals: int, chunks: int) -> dict:
     """K3/K4 launches of ``train_loop`` over ``steps`` on a model whose
     encodings are all corner-mode hash grids: each step encodes forward its
@@ -1448,7 +1519,7 @@ def smoke_phase(dev, hg, name: str, seed: int) -> dict:
                                    math.ceil(scene_px / cfg.eval_rays_per_chunk))
     got = counts["train_loop"][0]
     print(f"smoke: launches in train_loop {got}, predicted {want}")
-    check(got == want, "the smoke run's K3/K4 launches differ from the prediction")
+    check(grid_launches(got) == want, "the smoke run's K3/K4 launches differ from the prediction")
 
     scene = render_scene(SyntheticSceneConfig(num_cameras=24, image_size=128, seed=seed), device=dev)
     repeat_check("smoke", cfg, dataset_from_scene(scene, dev), seed)
@@ -1627,7 +1698,7 @@ def export_and_count(tag: str, run_dir: Path, manifest: dict, scene: dict, exp_d
         torch.cuda.synchronize()
         export_s = time.perf_counter() - t0
     got = counts["sample_volume"][-1]
-    check(got[fwd] == batches and sum(got.values()) == batches,
+    check(got[fwd] == batches and sum(grid_launches(got).values()) == batches,
           f"{tag}: export launched {got} for {batches} batches")
     summary = (f"{tag}: export N={DISK_EXPORT_N} in the crop box {DISK_BOX} at thresholds "
                f"{DISK_THRESHOLDS}: {export_s:.3f} s ({batches} batches, {fwd} {got[fwd]}); "
@@ -1786,7 +1857,7 @@ def disk_phase(dev, hg, name: str, seed: int) -> dict:
               f"{final[0]['final_eval_psnr']:.3f} dB; manifest scale "
               f"{manifest['dataparser_scale']:.6f} equals a fresh parse")
         print(f"disk: launches in train_loop {got}, predicted {want}")
-        check(got == want, "the disk run's K1/K2 launches differ from the prediction")
+        check(grid_launches(got) == want, "the disk run's K1/K2 launches differ from the prediction")
         check(counts["evaluate_all"][0]["cell_encode_fwd"] == len(parsed.eval_indices) * chunks,
               "the final eval's K1 launches")
 
@@ -1963,7 +2034,7 @@ def big_phase(scene, tree: Path, root: Path, process_s: float, dev, hg, name: st
     check(manifest["num_train_images"] == cfg.max_train_images == 200,
           f"big: {manifest['num_train_images']} train images")
     check(algos["fields"] == "radam", f"big: the fields group steps {algos['fields']}")
-    check(got == want, "big: the K1/K2 launches differ from the prediction")
+    check(grid_launches(got) == want, "big: the K1/K2 launches differ from the prediction")
     check(final is not None and math.isfinite(final["final_eval_psnr"]), "big: no final eval")
     eval_capture("big", tree, run_dir, dev, hg, counts)
     probe_capture("big", run_dir, manifest, scene, cfg, dev, np.random.default_rng(seed))
@@ -1999,7 +2070,7 @@ def huge_phase(tree: Path, root: Path, dev, hg, name: str, seed: int) -> tuple[d
           f"{rays:.1f} rays/s ({rays / cfg.train_rays_per_batch:.3f} steps/s); peak memory "
           f"{peak:.3f} GiB; manifest hash entry {manifest['hash']['table_shape']}")
     print(f"huge: launches in train_loop {got}, predicted {want}")
-    check(got == want, "huge: the K3/K4 launches differ from the prediction")
+    check(grid_launches(got) == want, "huge: the K3/K4 launches differ from the prediction")
     eval_capture("huge", tree, run_dir, dev, hg, counts)
     export_and_count("huge", run_dir, manifest, None, root / "huge_export", hg, counts,
                      "corner_encode_fwd", count=False)
@@ -2021,7 +2092,7 @@ def tpu_phase(tree: Path, root: Path, dev, hg, name: str, seed: int) -> dict:
           f"GiB; manifest table {manifest.get('table', 'recorded')}; grid kernel launches "
           f"{launches}")
     check("table" in manifest and manifest["table"] is None, "tpu: the manifest records a table")
-    check(not any(launches.values()), "tpu: a grid kernel was launched")
+    check(not any(grid_launches(launches).values()), "tpu: a grid kernel was launched")
     check(final is not None and math.isfinite(final["final_eval_psnr"]), "tpu: no final eval")
     return launches
 
@@ -2105,7 +2176,7 @@ def suggest_crop_tool(run_dir: Path, root: Path, manifest: dict, scene: dict, hg
           f"semantic AABB {box}; {inside:.4f} of the {len(gt)} GT fruit centres inside; "
           f"launches {_nonzero(got)} for {batches} probe batches")
     check(inside > 0.5, f"tools: only {inside:.2%} of the GT centres lie in the semantic AABB")
-    check(got["cell_encode_fwd"] == batches and sum(got.values()) == batches,
+    check(got["cell_encode_fwd"] == batches and sum(grid_launches(got).values()) == batches,
           f"tools: suggest-crop launched {got} for {batches} batches")
     check(len(report["projections"]) == 3, "tools: suggest-crop wrote no projections")
     return {"suggest_crop_s": seconds, "gt_inside": inside}
@@ -2153,7 +2224,7 @@ def rgb_pointcloud_tool(run_dir: Path, tree: Path, root: Path, cfg, hg, counts: 
           "tools: the RGB cloud is empty, too large or not finite")
     check(cols.min() >= 0.0 and cols.max() <= 1.0, "tools: an RGB colour lies outside [0, 1]")
     check(len(written) == len(pts), "tools: point_cloud.ply holds another cloud")
-    check(got["cell_encode_fwd"] == chunks and sum(got.values()) == chunks,
+    check(got["cell_encode_fwd"] == chunks and sum(grid_launches(got).values()) == chunks,
           f"tools: the RGB cloud launched {got} for {chunks} chunks")
     return {"pointcloud_s": seconds, "cleaning_s": sum(cleaning), "pointcloud_points": len(pts)}
 
@@ -2194,7 +2265,8 @@ def viewer_tool(big_dir: Path, huge_dir: Path, dev, hg, counts: dict) -> dict:
         httpd.shutdown()
         httpd.server_close()
     frames = counts["render_frame"]
-    check(all(c["cell_encode_fwd"] == chunks and sum(c.values()) == chunks for c in frames),
+    check(all(c["cell_encode_fwd"] == chunks and sum(grid_launches(c).values()) == chunks
+              for c in frames),
           f"tools: viewer frames launched {frames[0]} for {chunks} chunks")
     check(aabb is not None, "tools: the viewer's /suggest found nothing")
     huge = server.ViewerSession.from_run_dir(huge_dir, dev)
@@ -2209,7 +2281,7 @@ def viewer_tool(big_dir: Path, huge_dir: Path, dev, hg, counts: dict) -> dict:
           f"{len(server._PANELS)} panels (with the HTTP round trip): " +
           ", ".join(f"{k} {v:.4f}" for k, v in means.items()) +
           f"; /suggest {aabb}; huge parity frame {huge_s:.4f} s, launches {_nonzero(got)}")
-    check(got["corner_encode_fwd"] == want and sum(got.values()) == want,
+    check(got["corner_encode_fwd"] == want and sum(grid_launches(got).values()) == want,
           f"tools: the huge frame launched {got}, predicted {want} K3")
     return {"viewer_s_a_frame": means, "viewer_huge_s": huge_s}
 
@@ -2968,7 +3040,8 @@ def scaleout_phase(dev, hg, name: str, seed: int, scene) -> dict:
         got = grid["counts"]["launches"]
         print(f"scale-out: the grid campaign's steps launched {got}; one scene's steps would "
               f"launch {want}; scenes {grid['counts']['scenes']}")
-        check(got == want, "the grid campaign's K1/K2 launches are not one a call for all scenes")
+        check(grid_launches(got) == want,
+              "the grid campaign's K1/K2 launches are not one a call for all scenes")
         check(all(grid["counts"]["scenes"][k] == SCENES * got[k] for k in got),
               "a grid campaign launch did not take every scene")
         check(len(grid["operands"]) == 2, "the grid campaign's last step: not 2 batched K2 calls")
@@ -2981,7 +3054,8 @@ def scaleout_phase(dev, hg, name: str, seed: int, scene) -> dict:
         pwant = predicted_hash_launches(pcfg, range(CAMPAIGN_PARITY_ITERS), 0, 0)
         pgot = parity["counts"]["launches"]
         print(f"scale-out: the parity campaign's steps launched {pgot}, predicted {pwant}")
-        check(pgot == pwant, "the parity campaign's K3/K4 launches differ from one a call")
+        check(grid_launches(pgot) == pwant,
+              "the parity campaign's K3/K4 launches differ from one a call")
         check(all(parity["counts"]["scenes"][k] == SCENES * pgot[k] for k in pgot),
               "a parity campaign launch did not take every scene")
         last = predicted_hash_launches(
@@ -3307,6 +3381,7 @@ def main(argv=None) -> int:
         return out
 
     kernels = timed("kernels", kernel_phase, hg, cell_layout, corner_grid, dev, args.seed)
+    freq = timed("freq", freq_phase, dev, args.seed)
     timed("parity", parity_phase, scene, dev, args.seed)
     cell_counts, captured = timed("slice", slice_phase, scene, dev, args.steps, args.seed, hg,
                                   name)
@@ -3359,7 +3434,7 @@ def main(argv=None) -> int:
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s; "
           f"seconds a phase {seconds}")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "freq_encode": freq}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -9,6 +9,7 @@ import math
 
 import torch
 
+from ..ops.freq_encode import freq_encode
 from ..ops.hash_grid import (
     CellLayout, cell_encode, cell_level_layout, corner_layout, grid_encode_flat,
     uniform_cell_layout,
@@ -286,12 +287,14 @@ def sh_encode(directions: torch.Tensor, levels: int = 4) -> torch.Tensor:
     return torch.stack(comps, dim=-1)
 
 
-def nerf_encode(x: torch.Tensor, num_frequencies: int) -> torch.Tensor:
+def nerf_encode(
+    x: torch.Tensor, num_frequencies: int, dtype: torch.dtype | None = None
+) -> torch.Tensor:
     """The input, then sin and cos at octave frequencies pi * 2^k:
     [..., D] -> [..., D + D*2*F], in the JAX twin's column order with
-    ``include_input=True`` (input, all sines, all cosines; dim-major)."""
-    freqs = math.pi * 2.0 ** torch.linspace(
-        0.0, num_frequencies - 1, num_frequencies, dtype=x.dtype, device=x.device
-    )
-    scaled = (x[..., :, None] * freqs).flatten(-2)  # [..., D*F]
-    return torch.cat([x, torch.sin(scaled), torch.cos(scaled)], dim=-1)
+    ``include_input=True`` (input, all sines, all cosines; dim-major),
+    computed in float32 and written in ``dtype`` (None: float32), the
+    values ``.to(dtype)`` of the float32 encoding gives. CPU tensors take
+    the plain composition; CUDA tensors the kernel pair of
+    ``ops/freq_encode.py``."""
+    return freq_encode(x, num_frequencies, dtype)

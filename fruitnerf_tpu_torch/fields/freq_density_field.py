@@ -45,6 +45,7 @@ def freq_density_field_forward(
 ) -> torch.Tensor:
     """positions [..., 3] (world) -> density [...]."""
     pos01, selector = contract_to_unit(positions)
-    enc = nerf_encode(pos01 * 2.0 - 1.0, config.num_frequencies)
+    # written once in the MLP's dtype, the bits apply_mlp's cast would give
+    enc = nerf_encode(pos01 * 2.0 - 1.0, config.num_frequencies, config.compute_dtype)
     out = apply_mlp(params["mlp"], enc, config.mlp, config.compute_dtype)
     return trunc_exp(out[..., 0]) * selector

@@ -161,7 +161,8 @@ def get_density(
             raise ValueError("get_density(contraction=False) needs an aabb")
         pos01, selector = normalize_aabb_to_unit(positions, aabb)
     if config.encoding == "freq":
-        h = nerf_encode(pos01 * 2.0 - 1.0, config.pos_frequencies)
+        # written once in the MLP's dtype, the bits apply_mlp's cast would give
+        h = nerf_encode(pos01 * 2.0 - 1.0, config.pos_frequencies, config.compute_dtype)
     else:
         encode = hash_encode if config.encoding == "hash" else grid_encode
         h = encode(params[config.table_key], pos01, config.encoding_config)

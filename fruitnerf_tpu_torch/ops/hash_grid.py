@@ -18,8 +18,9 @@ Every table is ONE flat float32 parameter; level l occupies rows
 ``fruitnerf_tpu_torch.bridge`` converts the layouts. Each encoding takes
 the plain version for CPU tensors and launches the kernels
 (``csrc/cell_encode.cu``, ``csrc/corner_encode.cu``) for CUDA tensors;
-there is no fallback from one to the other. The kernels are compiled with
-nvcc for sm_90a at first use into
+there is no fallback from one to the other. The kernels, with the
+frequency encoding's (``csrc/freq_encode.cu``, ``ops/freq_encode.py``), are
+compiled with nvcc for sm_90a at first use into
 ``fruitnerf_tpu_torch/_build/<source hash>/`` and loaded with ctypes. The
 backward kernels sum dTable in 64-bit fixed point (``csrc/fixed_sum.cuh``),
 so a backward repeats bitwise.
@@ -54,7 +55,7 @@ MAX_CORNER_FEATURES = 8  # CORNER_MAX_FEATURES in csrc/corner_encode.cu
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[1] / "_build"
-_SOURCES = ("cell_encode.cu", "corner_encode.cu")
+_SOURCES = ("cell_encode.cu", "corner_encode.cu", "freq_encode.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -65,6 +66,7 @@ NVCC_FLAGS = (
 LAUNCHES = {
     "cell_encode_fwd": 0, "cell_encode_bwd": 0,
     "corner_encode_fwd": 0, "corner_encode_bwd": 0,
+    "freq_encode_fwd": 0, "freq_encode_bwd": 0,  # ops/freq_encode.py
 }
 SCENES = dict(LAUNCHES)
 
@@ -411,6 +413,9 @@ def build_library(sources, build_dir: Path) -> tuple[ctypes.CDLL, BuildInfo]:
         "corner_encode_bwd": ([ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i64, i64, i32, i32, i32,
                                arr, arr, arr, arr, ptr], i32),
         "corner_encode_bwd_work_bytes": ([i64, i32, i32, i32], i64),
+        # (x, out, rows, dims, octaves, bf16, stream); (x, grad, dx, ...)
+        "freq_encode_fwd": ([ptr, ptr, i64, i32, i32, i32, ptr], i32),
+        "freq_encode_bwd": ([ptr, ptr, ptr, i64, i32, i32, i32, ptr], i32),
     }
     for name, (argtypes, restype) in signatures.items():
         if hasattr(lib, name):  # a library of one source has that source's functions

@@ -6,7 +6,8 @@ them): busy time, span and the busiest kernels; (3) an eager profiled step
 of each gate, every kernel attributed to the innermost stage span
 (``utils/profiling.py``) of its launching op, a backward kernel to the span
 of its forward op through the autograd sequence number; the lambda-templated
-elementwise kernels summed by stage.
+elementwise kernels summed by stage. A cell of the ``multi_scene`` entry
+(the campaign) steps through ``multi_scene_step`` with its scene generators.
 
     python scripts_dev/step_probe.py --workload fruit_nerf_big.tpu.train \
         [--seed N] [--device cuda|cpu] [--json out.json]
@@ -32,6 +33,7 @@ from fruitnerf_tpu_torch.engine import step_graph
 from fruitnerf_tpu_torch.engine.trainer import train_step
 from fruitnerf_tpu_torch.models.fruit_model import proposal_updated
 from fruitnerf_tpu_torch.ops import hash_grid as hg
+from fruitnerf_tpu_torch.parallel.multi_scene import multi_scene_step
 
 STAGES = ("draws", "rays", "sampler.spaced", "field", "render", "sparsity", "losses",
           "backward", "optimizer", "metrics", "graph", "graph.capture", "log")
@@ -137,10 +139,18 @@ def main():
         hg.build_kernels()
     cell = harness.cell(a.workload, a.root)
     entry = cell.entry(cell, drive.seeds(a.seed), dev, a.root is None)
-    st, data, cfg, gen = entry.state, entry.data, entry.config, entry.generator
+    st, cfg = entry.state, entry.config
+    if hasattr(entry, "datas"):  # the multi-scene entry
+
+        def step():
+            return multi_scene_step(st, entry.datas, cfg, entry.generators)
+    else:
+
+        def step():
+            return train_step(st, entry.data, cfg, entry.generator)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
     for _ in range(a.warm):
-        train_step(st, data, cfg, gen)
+        step()
     sync()
     # (1) a replay of each gate by CUDA events; the loop's wall a step
     if dev.type == "cuda":
@@ -161,7 +171,7 @@ def main():
         n = 50
         t = time.perf_counter()
         for _ in range(n):
-            train_step(st, data, cfg, gen)
+            step()
         sync()
         out["loop_wall_ms"] = (time.perf_counter() - t) / n * 1e3
         # (2) profiled replays of each gate
@@ -187,16 +197,16 @@ def main():
     step_graph.replay_key = lambda *x, **k: None
     try:
         while proposal_updated(st.step, cfg.model):
-            train_step(st, data, cfg, gen)
+            step()
         sync()
         res = {}
         for gate in (False, True):
             while proposal_updated(st.step, cfg.model) != gate:
-                train_step(st, data, cfg, gen)
+                step()
             sync()
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
             with profile(activities=acts) as prof:
-                train_step(st, data, cfg, gen)
+                step()
                 sync()
             by_stage, by_kernel = attribute(prof, dev)
             lam = collections.defaultdict(float)

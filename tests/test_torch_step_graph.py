@@ -20,7 +20,8 @@ and the huge parity preset (corner hash, RAdam from its first count), and
 on the base parity preset (the published network: corner hash, hash
 proposal fields, Adam) with its K3/K4 launches counted, and on the big tpu
 preset (frequency-encoded main field, frequency proposals, RAdam) with no
-grid launch, are bitwise equal in every loss, parameter, moment, step count, the
+grid launch and the frequency-encoding pair's launches counted, are
+bitwise equal in every loss, parameter, moment, step count, the
 generator's state and the next draws, with equal kernel launch counts; the
 staged Adam step is torch's Adam step bitwise; a checkpoint taken mid-run
 resumes to the same next 5 steps; 12 campaign-shaped steps of 4 scenes
@@ -796,7 +797,8 @@ def test_graphed_steps_equal_eager_steps_on_the_base_parity_network(card):
     g, e = _graphed_and_eager_from_10000(cfg, data)
     gated = sum(proposal_updated(s, cfg.model) for s in range(10_000, 10_000 + STEPS))
     want = {"cell_encode_fwd": 0, "cell_encode_bwd": 0, "corner_encode_fwd": 4 * STEPS,
-            "corner_encode_bwd": 2 * STEPS + 2 * gated}
+            "corner_encode_bwd": 2 * STEPS + 2 * gated, "freq_encode_fwd": 0,
+            "freq_encode_bwd": 0}
     assert gated == 3 and g["launches"] == e["launches"] == (want, want)
 
 
@@ -806,17 +808,23 @@ def test_graphed_steps_equal_eager_steps_on_the_big_frequency_network(card):
     tpu with the sparsity prior: a 14-octave frequency encoding into
     128-wide MLPs, frequency-MLP proposals (512, 256), RAdam on every MLP),
     twelve steps from 10,000, graphed against eager on the same draws:
-    bitwise equal, with no grid kernel launched."""
+    bitwise equal, with no grid kernel launched and the frequency-encoding
+    pair launched four times a step forward (the fine samples, the sparsity
+    points, two proposal fields) and once backward (the fine samples),
+    twice more on the steps that train the proposals."""
     from fruitnerf_tpu_torch.configs import apply_overrides
+    from fruitnerf_tpu_torch.models.fruit_model import proposal_updated
 
     _, data = card
     cfg = apply_overrides(get_preset("fruit_nerf_big", data.cameras.num_cameras, variant="tpu"),
                           {"sparsity_loss": 0.005})
     assert cfg.model.field.encoding == "freq"
     g, e = _graphed_and_eager_from_10000(cfg, data)
-    none = dict.fromkeys(("cell_encode_fwd", "cell_encode_bwd", "corner_encode_fwd",
-                          "corner_encode_bwd"), 0)
-    assert g["launches"] == e["launches"] == (none, none)
+    gated = sum(proposal_updated(s, cfg.model) for s in range(10_000, 10_000 + STEPS))
+    want = {**dict.fromkeys(("cell_encode_fwd", "cell_encode_bwd", "corner_encode_fwd",
+                             "corner_encode_bwd"), 0),
+            "freq_encode_fwd": 4 * STEPS, "freq_encode_bwd": STEPS + 2 * gated}
+    assert g["launches"] == e["launches"] == (want, want)
 
 
 CAMPAIGN_SCENES = 4
