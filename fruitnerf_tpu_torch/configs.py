@@ -3,10 +3,12 @@
 (the grid main field with the frequency-MLP proposals), ``tpu`` (a
 frequency-encoded main field with no table, and the frequency-MLP
 proposals) and ``parity`` (the reference's own network: a corner-mode hash
-grid with two hash-grid proposal fields); and the ``fruit_nerf_smoke``
-preset. MLP compute is bfloat16 with float32 parameters and outputs on the
-production presets, float32 on the smoke preset; the grid encodings compute
-in float32. Tests shrink a preset with ``dataclasses.replace``.
+grid with two hash-grid proposal fields); the port's ``semantic_nerf``
+preset (the reference's ``SemanticNeRFField`` at its published widths, the
+``tpu`` variant only); and the ``fruit_nerf_smoke`` preset. MLP compute is
+bfloat16 with float32 parameters and outputs on the production presets,
+float32 on the smoke preset; the grid encodings compute in float32. Tests
+shrink a preset with ``dataclasses.replace``.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from .fields.density_field import DensityFieldConfig
 from .fields.encodings import GridEncodingConfig, HashEncodingConfig
 from .fields.freq_density_field import FreqDensityFieldConfig
 from .fields.fruit_field import FruitFieldConfig
+from .fields.semantic_nerf_field import SemanticNerfFieldConfig
 from .models.fruit_model import FruitModelConfig
 
 TPU_PROPOSAL_NETS = (
@@ -260,6 +263,41 @@ def fruit_nerf_huge(
     )
 
 
+def semantic_nerf(
+    num_images: int, compute_dtype: torch.dtype = torch.bfloat16, variant: str = "tpu"
+) -> TrainConfig:
+    """The reference's ``SemanticNeRFField`` (meyerls/FruitNeRF
+    ``fruit_field.py:310-410``, wired into no config there) at its published
+    widths in ``FruitModel``: an 8 x 256 trunk on 10 position octaves whose
+    5th layer takes the encoded position again, a 256 -> 1 density head, a
+    colour head 283 -> 128 -> 3 on [trunk, 4 direction octaves] and a
+    256 -> 64 -> 1 semantic branch on the detached trunk; FruitField's
+    scene contraction, density bias -3. Otherwise the big preset's ``tpu``
+    variant (8192 rays, 128 fine samples, frequency proposals (512, 256),
+    RAdam 1e-3 -> 1e-5, split 0.99, 200 train images, 100k iterations) with
+    the sparsity prior at 0.005. The field has no table, so ``tpu`` is its
+    only variant; ``num_images`` sizes nothing (no appearance embedding)."""
+    _check_variant(variant)
+    if variant != "tpu":
+        raise KeyError(f"the semantic_nerf preset has no table and takes the 'tpu' variant "
+                       f"only, not {variant!r}")
+    big = fruit_nerf_big(num_images, compute_dtype, variant="tpu")
+    field = SemanticNerfFieldConfig(
+        num_layers_base=8,
+        hidden_dim=256,
+        num_layers_semantic=2,
+        hidden_dim_semantic=64,
+        pos_frequencies=10,
+        dir_frequencies=4,
+        compute_dtype=compute_dtype,
+        skip_layers=(4,),
+        scene_contraction=True,
+        density_bias=-3.0,
+    )
+    model = dataclasses.replace(big.model, field=field, density_sparsity_mult=0.005)
+    return dataclasses.replace(big, preset="semantic_nerf", model=model)
+
+
 def fruit_nerf_smoke(num_images: int, compute_dtype: torch.dtype = torch.float32) -> TrainConfig:
     """Tiny preset for CPU tests and smoke runs: small hash tables, few
     samples, a white background, 500 iterations. It takes no variant."""
@@ -308,13 +346,15 @@ PRESETS = {
     "fruit_nerf_big": fruit_nerf_big,
     "fruit_nerf_huge": fruit_nerf_huge,
     "fruit_nerf_smoke": fruit_nerf_smoke,
+    "semantic_nerf": semantic_nerf,
 }
 
 
 def get_preset(name: str, num_images: int, **kw) -> TrainConfig:
     """A preset by name, as the JAX package's ``get_preset``; ``kw`` goes to
     the preset (``variant`` and ``compute_dtype``, and ``grid_table_size``
-    for the big and huge presets; the smoke preset takes no variant)."""
+    for the big and huge presets; the smoke preset takes no variant, the
+    port's ``semantic_nerf`` the ``tpu`` one alone)."""
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; choose from {sorted(PRESETS)}")
     return PRESETS[name](num_images, **kw)

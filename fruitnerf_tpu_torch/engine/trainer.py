@@ -30,8 +30,8 @@ from ..cameras.camera_opt import exp_map_so3xr3, init_camera_opt
 from ..cameras.cameras import Cameras, frustum_coverage, generate_image_rays, generate_rays
 from ..configs import OptimizerConfig, TrainConfig
 from ..core.rays import near_far_collider
-from ..fields.fruit_field import get_density
 from ..models.fruit_model import (
+    field_density,
     forward_collided,
     forward_train,
     init_fruit_model,
@@ -113,14 +113,15 @@ def learning_rate(opt: OptimizerConfig, step: int, max_iters: int) -> float:
 def _group_params(params: dict) -> dict[str, list[torch.Tensor]]:
     """Each group's tensors in the canonical leaf order, so that an
     optimizer state restores onto the same tensors however the parameter
-    dicts were built (``init_train_state`` or ``bridge``)."""
+    dicts were built (``init_train_state`` or ``bridge``). A field without
+    appearance embeddings (``SemanticNeRFField``) has no appearance group."""
     field = params["model"]["field"]
-    return {
-        "fields": tree_leaves({k: v for k, v in field.items() if k != "appearance"}),
-        "appearance": [field["appearance"]],
-        "proposal_networks": tree_leaves(params["model"]["proposal_networks"]),
-        "camera_opt": [params["camera_opt"]],
-    }
+    groups = {"fields": tree_leaves({k: v for k, v in field.items() if k != "appearance"})}
+    if "appearance" in field:
+        groups["appearance"] = [field["appearance"]]
+    groups["proposal_networks"] = tree_leaves(params["model"]["proposal_networks"])
+    groups["camera_opt"] = [params["camera_opt"]]
+    return groups
 
 
 def _group_configs(config: TrainConfig) -> dict[str, OptimizerConfig]:
@@ -470,7 +471,7 @@ def draw_step(config: TrainConfig, data: DeviceDataset, generator: torch.Generat
 
 def _sparsity_loss(params: dict, data: DeviceDataset, config: TrainConfig, pts) -> torch.Tensor:
     mc = config.model
-    dens, _ = get_density(params["model"]["field"], pts, mc.field)
+    dens = field_density(params["model"]["field"], pts, mc.field)
     occ = 1.0 - torch.exp(-dens * mc.sparsity_cell)
     if mc.sparsity_unobserved_boost > 1.0:
         # boost the prior where no training frustum sees the point

@@ -2,6 +2,13 @@
 ``fruitnerf_tpu/fields/mlp.py``: activations flow in a compute dtype
 (bfloat16 on the card), parameters and outputs stay float32.
 
+A layer named in ``MLPConfig.skips`` takes ``cat([input, hidden])``, the
+MLP's input joined again before its hidden features (nerfstudio's
+``skip_connections``). It is one product of the joined input: split into
+``x @ w[:in] + h @ w[in:]``, the two bf16 products round apart from the
+joined one, and a frequency encoding's input gradient and the pdf
+sampler's backward magnify that to a tenth of a proposal field's gradient.
+
 Each layer's matrix product ``h @ w`` goes through ``_SceneLinear``, an
 autograd Function that issues, outside ``torch.func.vmap``, exactly the
 products autograd issues for ``h @ w``: ``mm(h, w)``, ``mm(g, w.t())`` and
@@ -103,15 +110,22 @@ class MLPConfig:
     hidden_dim: int
     out_dim: int
     out_sigmoid: bool = False  # hidden layers are ReLU; the output is linear or sigmoid
+    # layers whose input is [the MLP's input, the hidden features]; off by default
+    skips: tuple = ()
+
+    def layer_dims(self) -> list[tuple[int, int]]:
+        """[(d_in, d_out)] of each layer, a skip layer's d_in the joined one."""
+        dims = [self.in_dim] + [self.hidden_dim] * (self.num_layers - 1) + [self.out_dim]
+        return [(a + (self.in_dim if i in self.skips else 0), b)
+                for i, (a, b) in enumerate(zip(dims[:-1], dims[1:]))]
 
 
 def init_mlp(
     config: MLPConfig, generator: torch.Generator, device
 ) -> dict[str, torch.Tensor]:
     """He-uniform weights [d_in, d_out], zero biases."""
-    dims = [config.in_dim] + [config.hidden_dim] * (config.num_layers - 1) + [config.out_dim]
     params = {}
-    for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
+    for i, (d_in, d_out) in enumerate(config.layer_dims()):
         bound = (6.0 / d_in) ** 0.5
         u = torch.rand((d_in, d_out), generator=generator, device=device)
         params[f"w{i}"] = u * (2.0 * bound) - bound
@@ -124,15 +138,19 @@ def apply_mlp(
     x: torch.Tensor,
     config: MLPConfig,
     compute_dtype: torch.dtype = torch.float32,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Forward pass in ``compute_dtype``; returns float32."""
+    """Forward pass in ``compute_dtype``; returns ``out_dtype``."""
     batch_shape = x.shape[:-1]
     h = x.reshape(-1, x.shape[-1]).to(compute_dtype)
+    x_in = h
     n = config.num_layers
     for i in range(n):
+        if i in config.skips:
+            h = torch.cat([x_in, h], dim=-1)
         w = params[f"w{i}"].to(compute_dtype)
         h = _SceneLinear.apply(h, w) + params[f"b{i}"].to(compute_dtype)
         if i < n - 1:
             h = torch.relu(h)
-    h = h.float().reshape(*batch_shape, config.out_dim)
+    h = h.to(out_dtype).reshape(*batch_shape, config.out_dim)
     return torch.sigmoid(h) if config.out_sigmoid else h

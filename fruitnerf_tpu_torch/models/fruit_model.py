@@ -6,6 +6,11 @@ Proposal annealing and the proposal-update cadence are functions of the
 step, which the trainer keeps on the host. ``proposal_initial_sampler=
 "uniform"`` spaces every sampler stage uniformly, as the JAX twin does (the
 reference leaves the sampler unset in that branch).
+
+The main field is a ``FruitField`` or, in the ``semantic_nerf`` preset, a
+``SemanticNeRFField`` (``fields/semantic_nerf_field.py``); the model picks
+its functions by the type of ``FruitModelConfig.field``, as it does the
+proposal nets'.
 """
 from __future__ import annotations
 
@@ -35,13 +40,19 @@ from ..fields.freq_density_field import (
     freq_density_field_forward,
     init_freq_density_field,
 )
+from ..fields import fruit_field, semantic_nerf_field
 from ..fields.fruit_field import FruitFieldConfig, fruit_field_forward, init_fruit_field
+from ..fields.semantic_nerf_field import (
+    SemanticNerfFieldConfig,
+    init_semantic_nerf_field,
+    semantic_nerf_forward,
+)
 from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
 class FruitModelConfig:
-    field: FruitFieldConfig
+    field: FruitFieldConfig | SemanticNerfFieldConfig
     # hash-grid DensityFields (the reference's two HashMLPDensityFields), or
     # the grid variant's frequency-MLP fields (configs.TPU_PROPOSAL_NETS)
     proposal_nets: tuple = (
@@ -93,11 +104,38 @@ def _proposal_forward(params: dict, positions: torch.Tensor, config) -> torch.Te
     return density_field_forward(params, positions, config)
 
 
+def field_forward(
+    params: dict,
+    positions: torch.Tensor,
+    directions: torch.Tensor,
+    camera_indices: torch.Tensor,
+    config,
+    train: bool,
+    contraction: bool = True,
+    aabb: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """The main field's pass (``fruit_field_forward`` or
+    ``semantic_nerf_forward``, whose field has no appearance embedding)."""
+    if isinstance(config, SemanticNerfFieldConfig):
+        return semantic_nerf_forward(params, positions, directions, config, contraction, aabb)
+    return fruit_field_forward(params, positions, directions, camera_indices, config, train,
+                               contraction, aabb)
+
+
+def field_density(params: dict, positions: torch.Tensor, config) -> torch.Tensor:
+    """World positions [..., 3] -> the main field's density [...]."""
+    if isinstance(config, SemanticNerfFieldConfig):
+        return semantic_nerf_field.get_density(params, positions, config)
+    return fruit_field.get_density(params, positions, config)[0]
+
+
 def init_fruit_model(
     config: FruitModelConfig, generator: torch.Generator, device
 ) -> dict:
+    init_field = (init_semantic_nerf_field if isinstance(config.field, SemanticNerfFieldConfig)
+                  else init_fruit_field)
     return {
-        "field": init_fruit_field(config.field, generator, device),
+        "field": init_field(config.field, generator, device),
         "proposal_networks": [
             _init_proposal(c, generator, device) for c in config.proposal_nets
         ],
@@ -187,7 +225,7 @@ def forward_collided(
         initial_spacing=config.proposal_initial_sampler,
     )
     with span("field"):
-        field_out = fruit_field_forward(
+        field_out = field_forward(
             params["field"], samples.positions(), bundle.directions,
             bundle.camera_indices, config.field, train=train,
         )
@@ -228,7 +266,7 @@ def forward_export(
     embedding, and raw per-sample outputs with no compositing."""
     samples = spaced_samples(bundle, num_samples, spacing="uniform", train=False)
     positions = samples.positions()
-    field_out = fruit_field_forward(
+    field_out = field_forward(
         params["field"], positions, bundle.directions, bundle.camera_indices,
         config.field, train=False, contraction=False, aabb=aabb,
     )

@@ -28,7 +28,8 @@ import numpy as np
 
 def add_args(p: argparse.ArgumentParser):
     p.add_argument("--preset", default="fruit_nerf",
-                   help="fruit_nerf | fruit_nerf_big | fruit_nerf_huge | fruit_nerf_smoke")
+                   help="fruit_nerf | fruit_nerf_big | fruit_nerf_huge | fruit_nerf_smoke | "
+                        "semantic_nerf (with --variant tpu)")
     p.add_argument("--variant", default="grid",
                    choices=["grid", "tpu", "parity"])
     p.add_argument("--data", required=True,

@@ -9,7 +9,7 @@ of its forward op through the autograd sequence number; the lambda-templated
 elementwise kernels summed by stage. A cell of the ``multi_scene`` entry
 (the campaign) steps through ``multi_scene_step`` with its scene generators.
 
-    python scripts_dev/step_probe.py --workload fruit_nerf_big.tpu.train \
+    python scripts_dev/step_probe.py --workload semantic_nerf.tpu.train \
         [--seed N] [--device cuda|cpu] [--json out.json]
 
 On the CPU (``--device cpu``, with ``--root`` a shrunk benchmark) it runs
@@ -35,8 +35,8 @@ from fruitnerf_tpu_torch.models.fruit_model import proposal_updated
 from fruitnerf_tpu_torch.ops import hash_grid as hg
 from fruitnerf_tpu_torch.parallel.multi_scene import multi_scene_step
 
-STAGES = ("draws", "rays", "sampler.spaced", "field", "render", "sparsity", "losses",
-          "backward", "optimizer", "metrics", "graph", "graph.capture", "log")
+STAGES = ("draws", "rays", "sampler.spaced", "field", "field.trunk", "field.heads", "render",
+          "sparsity", "losses", "backward", "optimizer", "metrics", "graph", "graph.capture", "log")
 
 
 def is_stage(name):

@@ -65,7 +65,8 @@ def test_unknown_names_raise():
         configs.get_preset("typo", 1)
     with pytest.raises(KeyError, match="variant"):
         configs.get_preset("fruit_nerf_big", 1, variant="typo")
-    assert set(configs.PRESETS) == set(jconfigs.PRESETS)
+    # the JAX package's presets, and the port's own SemanticNeRFField preset
+    assert set(configs.PRESETS) == set(jconfigs.PRESETS) | {"semantic_nerf"}
 
 
 def _bundles(n=8):

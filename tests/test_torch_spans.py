@@ -248,7 +248,7 @@ def test_no_span_name_is_read_by_an_older_rule():
     matmuls) read nothing new when a span is the outermost op."""
     mine = harness._load(harness.HERE, "metrics", "optimizer.device_ms")._mine
     matmuls = harness._load(harness.HERE, "metrics", "model.mlp_device_ms").MATMULS
-    names = (*STEP, "loss_and_grad", "log", "eval", "save")
+    names = (*STEP, "loss_and_grad", "log", "eval", "save", "field.trunk", "field.heads")
     for name in names:
         for ops in ((name,), ("aten::mul", name)):
             e = DeviceEvent("void elementwise_kernel", 0.0, 1.0, ops)
